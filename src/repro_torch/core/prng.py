@@ -1,0 +1,115 @@
+"""threefry2x32 in JAX's *partitionable* mode, as plain torch ops.
+
+The reference has no file of its own for this: it calls ``jax.random``
+after ``repro.core.faults`` switches on ``jax_threefry_partitionable``
+process-wide.  The port draws the same fault bits from the same keys, so it
+carries its own copy of the generator, bit for bit:
+
+  * a key is a pair of 32-bit words, here an int64 tensor ``(..., 2)``
+    holding values in ``[0, 2**32)`` (torch's CPU build has no shifts on
+    ``uint32``, so every word lives in int64 and is masked to 32 bits);
+  * ``split(key, n)``: ``threefry2x32(key, (0, i))`` for ``i < n``, stacked
+    as ``(bits1, bits2)`` (jax ``_threefry_split_foldlike``);
+  * ``fold_in(key, d)``: ``threefry2x32(key, (0, uint32(d)))``
+    (jax ``_threefry_fold_in``);
+  * ``bits(key, shape)``: ``bits1 ^ bits2`` over the counters
+    ``(0, flat_index)`` (jax ``_threefry_random_bits_partitionable``);
+  * ``uniform``: ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus 1;
+  * ``bernoulli(key, p, shape)``: ``uniform(key, shape) < float32(p)``.
+
+Every function accepts a batch of keys ``(..., 2)`` and maps over its leading
+dimensions, which is what ``jax.vmap`` over a key batch computes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 hash (20 rounds) on int64 words; all four arguments
+    broadcast together.  Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK32
+    x2 = (x2 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = (x1 + x2) & MASK32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x1, x2
+
+
+def as_key(key, device=None) -> torch.Tensor:
+    """A key (or key batch) as an int64 tensor; accepts numpy uint32 arrays."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device or key.device, dtype=torch.int64)
+    return torch.tensor(np.asarray(key).astype(np.int64) & MASK32,
+                        device=device)
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: with 64-bit types off, jax narrows the
+    seed to 32 bits, so the key is ``(0, seed mod 2**32)``."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
+                        device=device)
+
+
+def _hash_counters(key: torch.Tensor, n: int):
+    """threefry over the counters ``(0, i)``, ``i < n``, for every key of a
+    batch: two ``(..., n)`` words."""
+    if n >= 2 ** 32:
+        raise NotImplementedError("more than 2**32 draws from one key")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
+    b1, b2 = _hash_counters(key, num)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``; ``data`` is taken as uint32 (site ids from
+    ``crc32`` reach ``2**32 - 1``)."""
+    d = int(data) & MASK32
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], zero, zero + d)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits`` (uint32) as int64 words: ``(..., *shape)``."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    b1, b2 = _hash_counters(key, n)
+    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)``: the top 23 bits of each
+    word as a mantissa under exponent 0, minus 1."""
+    words = bits(key, shape)
+    f = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` with a float32 ``p`` (a Python
+    float, or a float32 tensor broadcastable against the draw)."""
+    if not isinstance(p, torch.Tensor):
+        p = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < p

@@ -1,0 +1,15 @@
+"""Where the port runs.  Entry points run on the GPU unless the caller asks
+for the CPU; with no GPU and no such request they raise, never falling back
+quietly."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``cuda`` by default; ``"cpu"`` (or any torch device) when asked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run "
+                           "the port on the CPU")
+    return dev

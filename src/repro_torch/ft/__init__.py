@@ -1,0 +1,18 @@
+"""``repro_torch.ft`` — the public fault-tolerance API.
+
+Counterpart of ``repro.ft``:
+
+    from repro_torch import ft
+
+    policy = ft.get_policy("cl", ber=1e-3)
+    y = ft.protect_linear(key, x, w, policy, important=m)            # reference
+    y = ft.protect_linear(key, x, w, policy, important=m, backend="fused")
+"""
+from repro_torch.ft.policy import (AlgorithmLayer, ArchLayer,  # noqa: F401
+                                   CircuitLayer, ProtectionPolicy)
+from repro_torch.ft.registry import get_policy, register_policy  # noqa: F401
+# compat and api import after policy/registry are bound
+# isort: split
+from repro_torch.ft.compat import as_policy  # noqa: F401
+# isort: split
+from repro_torch.ft.api import BACKENDS, protect_linear  # noqa: F401

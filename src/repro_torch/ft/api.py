@@ -1,0 +1,116 @@
+"""``protect_linear``: the single fault-tolerant linear entry point.
+
+Counterpart of ``repro.ft.api``.  Two backends compute the same FlexHyCA
+semantics:
+
+  * ``backend="reference"``: the functional model (``_protect_reference``),
+    plain torch ops, the yardstick of the other;
+  * ``backend="fused"``: the fused kernel (``repro_torch.kernels.
+    fused_decode``): the same key schedule and fault draws, packed into int32
+    flip words and consumed by one hand-written CUDA kernel on the GPU.  It
+    equals ``reference`` bitwise for every registry policy, global or (M, 2)
+    per-row keys, weight faults included, ``dyn`` overrides supported.
+
+The reference's third backend, ``"pallas"`` (the ``protected_mm`` kernel with
+its own random planes), is not ported yet; nor is ``protect_linear_ste``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import faults, prng
+from repro_torch.core import quantization as Q
+from repro_torch.ft.policy import ProtectionPolicy
+from repro_torch.kernels.fused_decode import ops as fused_ops
+
+BACKENDS = ("reference", "fused")
+
+
+def protect_linear(key, x: torch.Tensor, w: torch.Tensor,
+                   policy: ProtectionPolicy, important=None, *,
+                   layer_protected: bool = True, backend: str = "reference",
+                   dyn=None) -> torch.Tensor:
+    """Fault-tolerant linear: float in/out, faulty quantized DLA inside.
+
+    Args:
+      key: one key ``(2,)``, or an (M, 2) batch of keys, one per row of the
+        flattened ``x``, for per-row fault streams and quantization scales.
+      x: (..., K) float32 activations.  w: (K, N) float32 weights.
+      policy: a :class:`ProtectionPolicy` (``repro_torch.ft.get_policy``).
+      important: (N,) bool mask of important output channels; consumed only
+        by recompute policies.
+      layer_protected: for whole-layer-TMR policies, whether this layer is in
+        the protected set.
+      backend: "reference" | "fused".
+      dyn: optional overrides of ``ib_th`` / ``nb_th`` / ``q_scale`` (ints
+        or int tensors on the device).
+    Returns (..., N) float32.
+    """
+    if backend == "reference":
+        return _protect_reference(key, x, w, policy, important,
+                                  layer_protected, dyn)
+    if backend == "fused":
+        return fused_ops.fused_protect_linear(
+            key, x, w, policy, important, layer_protected=layer_protected,
+            dyn=dyn)
+    if backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' (the protected_mm kernel) is not ported yet: "
+            "ROADMAP.md, queue B, kernels/protected_mm")
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS}")
+
+
+def _protect_reference(key, x, w, policy: ProtectionPolicy, important,
+                       layer_protected: bool, dyn=None):
+    """The reference backend's datapath, structure-dispatched on the policy.
+
+    An (M, 2) key batch switches to per-row mode: each row gets its own
+    activation scale, truncation LSB and fault draws, and with
+    ``policy.weight_faults`` its own faulty view of the shared weights.
+    """
+    dev = x.device
+    key = prng.as_key(key, dev)
+    orig_shape = x.shape
+    x2 = x.reshape(-1, orig_shape[-1])
+    per_row = key.dim() == 2
+    kw, ka, kd = fused_ops.key_schedule(key)
+    n = w.shape[1]
+    ib_th, nb_th, q_scale = fused_ops.knobs(policy, dyn, dev)
+    ber = fused_ops.ber_scalar(policy.ber, dev)
+
+    xq, sx = Q.quantize(x2, axis=1 if per_row else None)
+    wq, sw = Q.quantize(w)
+    if policy.weight_faults and per_row:
+        # each row's private faulty-weight view: (M, K, N) flip words
+        wfl = faults.flip_word(kw, wq.shape, ber, Q.OUT_BITS)
+        uw = (wq.unsqueeze(0) & ((1 << Q.OUT_BITS) - 1)) ^ wfl
+        wq_f = torch.where((uw & (1 << (Q.OUT_BITS - 1))) != 0,
+                           uw - (1 << Q.OUT_BITS), uw)
+        acc = Q.int_matmul(xq, wq_f)
+    else:
+        wq_f = (faults.inject_weight_faults(kw, wq, ber)
+                if policy.weight_faults else wq)
+        acc = Q.int_matmul(xq, wq_f)
+    acc = Q.saturate(acc)
+    absmax = (acc.abs().amax(dim=1, keepdim=True) if per_row
+              else acc.abs().amax())
+    t = Q.choose_trunc_lsb(absmax, q_scale=q_scale)
+    yq = Q.truncate_acc(acc, t)
+
+    # circuit layer: per-channel protected high bits
+    protect = fused_ops.output_protection(policy, important, ib_th, nb_th,
+                                          layer_protected, n, dev)
+    yq_f = faults.inject_output_faults(ka, yq, ber, protect_top=protect)
+
+    if policy.arch.recompute and important is not None:
+        # architecture layer: the DPPU recomputes important channels from
+        # clean weights with IB_TH-protected MACs and overrides them
+        acc_d = Q.saturate(Q.int_matmul(xq, wq))
+        yq_d = Q.truncate_acc(acc_d, t)
+        yq_d = faults.inject_output_faults(
+            kd, yq_d, ber, protect_top=torch.broadcast_to(ib_th, (n,)))
+        yq_f = torch.where(important.reshape(1, -1), yq_d, yq_f)
+
+    y = fused_ops.rescale(yq_f, sx, sw, t)
+    return y.reshape(*orig_shape[:-1], n)

@@ -1,0 +1,67 @@
+"""Serving launcher of the port: batched greedy generation on the GPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+      [--smoke] [--batch 4] [--prompt-len 64] [--new 16] \
+      [--policy crt3 --ber 1e-4 [--weight-faults]] [--device cpu]
+
+Counterpart of ``repro.launch.serve`` (python decode loop, no mesh) on the
+fused backend.  The weights and prompts are random, from fixed seeds;
+``--smoke`` serves the reduced config.  Weight faults are off unless asked
+for: at full width their eager draws take minutes per token (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new", type=int, default=16)
+    ap.add_argument("--policy", default=None,
+                    help="registry policy name (e.g. crt3, cl)")
+    ap.add_argument("--ber", type=float, default=1e-4)
+    ap.add_argument("--weight-faults", action="store_true",
+                    help="also inject weight faults (slow at full width)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch import device as _device
+    from repro_torch import ft
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    dev = _device.resolve(args.device)
+    cfg = get_config(args.arch, reduced=args.smoke)
+    model = build(cfg, get_run_config(args.arch))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, device=dev)
+    policy = None
+    if args.policy:
+        policy = ft.get_policy(args.policy, ber=args.ber,
+                               weight_faults=args.weight_faults)
+    engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=args.new),
+                    policy=policy, ft_backend="fused")
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    t0 = time.perf_counter()
+    out = engine.generate({"tokens": tokens})
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    print(f"generated {out.shape[1]} tokens for {out.shape[0]} requests in "
+          f"{engine.stats.roundtrips} host roundtrips, {dt:.3f} s on {dev}")
+    print(out.cpu())
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,194 @@
+"""GQA attention: chunked online softmax, local (sliding-window) layers,
+softcaps, rolling KV caches.
+
+Counterpart of ``repro.models.attention``: prefill attention (one block of
+full scores for short sequences, the chunked online softmax otherwise, which
+never holds an (S x S) score tensor and skips kv blocks outside the causal
+window) and the dense decode path.  Both are plain torch ops, as the
+reference's are XLA ops.  The paged decode path comes with the scheduler.
+
+The decode step writes the new token into the cache in place (the reference
+donates its cache buffers, so it too reuses them); callers hand the caches
+on and do not read the old ones.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import dense_init, linear, rope, softcap
+
+NEG = -1e30
+
+
+def init(generator, cfg, dtype, device):
+    D, H, KH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": dense_init(generator, D, H * Dh, dtype, device),
+        "wk": dense_init(generator, D, KH * Dh, dtype, device),
+        "wv": dense_init(generator, D, KH * Dh, dtype, device),
+        "wo": dense_init(generator, H * Dh, D, dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * Dh), ("bk", KH * Dh), ("bv", KH * Dh)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def _scale(cfg) -> float:
+    return cfg.attn_scale or cfg.d_head ** -0.5
+
+
+def _mask(q_pos, k_pos, window):
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
+
+
+def _single_block(q, k, v, *, window, cap):
+    """Full scores for short sequences.  q: (B, S, KH, G, Dh)."""
+    S, T = q.shape[1], k.shape[1]
+    s = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = softcap(s, cap)
+    dev = q.device
+    m = _mask(torch.arange(S, device=dev), torch.arange(T, device=dev),
+              window)
+    s = torch.where(m, s, torch.full((), NEG, device=dev))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+
+
+def chunked_attention(q, k, v, *, window=0, cap=0.0, block=512):
+    """Causal attention.  q: (B, S, H, Dh); k, v: (B, T, KH, Dh) ->
+    (B, S, H, Dh); q pre-scaled.
+    kv blocks outside the causal window are skipped (O(S*W) for SWA)."""
+    B, S, H, Dh = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    q = q.reshape(B, S, KH, G, Dh)
+    if S <= block and T <= block:
+        o = _single_block(q, k, v, window=window, cap=cap)
+        return o.reshape(B, S, H, Dh).to(v.dtype)
+
+    if S % block or T % block:
+        raise ValueError(f"sequence lengths {S}, {T} are not multiples of "
+                         f"the attention block {block}")
+    nq, nk = S // block, T // block
+    w_blocks = -(-window // block) if window else nk
+    dev = q.device
+    ar = torch.arange(block, device=dev)
+    neg = torch.full((), NEG, device=dev)
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * block:(i + 1) * block].to(torch.float32)
+        acc = torch.zeros((B, KH, G, block, Dh), device=dev)
+        m = torch.full((B, KH, G, block), NEG, device=dev)
+        den = torch.zeros((B, KH, G, block), device=dev)
+        hi = min(i + 1, nk)
+        lo = max(i + 1 - w_blocks, 0) if window else 0
+        for j in range(lo, hi):
+            kj = k[:, j * block:(j + 1) * block].to(torch.float32)
+            vj = v[:, j * block:(j + 1) * block].to(torch.float32)
+            s = torch.einsum("bqkgd,bvkd->bkgqv", qi, kj)
+            s = softcap(s, cap)
+            msk = _mask(i * block + ar, j * block + ar, window)
+            s = torch.where(msk, s, neg)
+            mj = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - mj[..., None])
+            corr = torch.exp(m - mj)
+            den = den * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqv,bvkd->bkgqd", p, vj)
+            m = mj
+        o = acc / torch.clamp(den[..., None], min=1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4))       # (B, blk, KH, G, Dh)
+    o = torch.cat(outs, dim=1)
+    return o.reshape(B, S, H, Dh).to(v.dtype)
+
+
+def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
+          cache=None, mode="prefill"):
+    """Attention sub-layer; modes "prefill" (builds the cache) and "decode"
+    (one token).  Returns (out, new_cache)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    window = cfg.window if kind == "L" else 0
+
+    q = linear(x, p["wq"], p.get("bq"), ftc=ftc, name=f"{name}/wq")
+    q = q.reshape(*x.shape[:-1], H, Dh)
+    k = linear(x, p["wk"], p.get("bk"), ftc=ftc, name=f"{name}/wk")
+    v = linear(x, p["wv"], p.get("bv"), ftc=ftc, name=f"{name}/wv")
+    k = k.reshape(*x.shape[:-1], KH, Dh)
+    v = v.reshape(*x.shape[:-1], KH, Dh)
+    k = rope(k, positions, cfg.rope_theta)
+    q = rope(q, positions, cfg.rope_theta)
+    q = (q * _scale(cfg)).to(x.dtype)
+
+    if mode == "decode":
+        if "bt" in cache:
+            raise NotImplementedError("the paged KV cache comes with the "
+                                      "scheduler (ROADMAP.md)")
+        kc, vc = cache["k"], cache["v"]
+        cap_len = kc.shape[1]
+        pos = positions[:, 0]                                    # (B,)
+        slot = pos % cap_len if window else torch.clamp(pos, max=cap_len - 1)
+        rows = torch.arange(x.shape[0], device=x.device)
+        kc[rows, slot] = k[:, 0].to(kc.dtype)
+        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        new_cache = {"k": kc, "v": vc}
+        n_valid = torch.clamp(pos + 1, max=cap_len)
+        o = _decode_attn(q, kc, vc, n_valid, cap=cfg.attn_softcap)
+    else:
+        o = chunked_attention(q, k, v, window=window,
+                              cap=cfg.attn_softcap, block=run.attn_block)
+        new_cache = _build_cache(k, v, window)
+    y = linear(o.reshape(*x.shape[:-1], H * Dh), p["wo"], ftc=ftc,
+               name=f"{name}/wo")
+    return y, new_cache
+
+
+def _decode_attn(q, kc, vc, n_valid, cap=0.0):
+    """One-token attention over a cache.  q: (B, 1, H, Dh), kc: (B, C, KH,
+    Dh); n_valid: per-row (B,) count of populated cache slots."""
+    B, _, H, Dh = q.shape
+    KH = kc.shape[2]
+    G = H // KH
+    qg = q.reshape(B, KH, G, Dh).to(torch.float32)
+    s = torch.einsum("bkgd,bckd->bkgc", qg, kc.to(torch.float32))
+    s = softcap(s, cap)
+    valid = (torch.arange(kc.shape[1], device=q.device)[None]
+             < n_valid.reshape(-1, 1))
+    s = torch.where(valid[:, None, None], s, torch.full((), NEG,
+                                                        device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", p, vc.to(torch.float32))
+    return o.reshape(B, 1, H, Dh).to(vc.dtype)
+
+
+def _build_cache(k, v, window):
+    """Prefill cache: the last ``window`` tokens for local layers in the
+    rolling layout (position p at slot p % window), all tokens for global."""
+    S = k.shape[1]
+    if window and S > window:
+        k, v = k[:, -window:], v[:, -window:]
+        shift = S % window
+        if shift:
+            k = torch.roll(k, shift, dims=1)
+            v = torch.roll(v, shift, dims=1)
+    elif window and S < window:
+        pad = (0, 0, 0, 0, 0, window - S)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    return {"k": k.contiguous(), "v": v.contiguous()}
+
+
+def init_cache(cfg, kind, batch, cap_len, dtype, device):
+    """Zero cache of one attention layer.  Rolling caches are always
+    window-sized: position p lives at slot p % window."""
+    window = cfg.window if kind == "L" else 0
+    C = window if window else cap_len
+    shp = (batch, C, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}

@@ -1,0 +1,127 @@
+"""Shared model components: norms, rotary embeddings, inits, activations, and
+the fault-tolerant ``linear`` every projection goes through.
+
+Counterpart of ``repro.models.common``.  Shapes and layouts are the
+reference's ((..., S, H, D) for heads; (d_in, d_out) weights), so the tests
+compare like with like.
+"""
+from __future__ import annotations
+
+import zlib
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------- init -----
+def _trunc_normal(shape, std, dtype, device, generator):
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * std).to(dtype)
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype, device):
+    """Truncated normal in [-2, 2] standard deviations, std 1/sqrt(d_in)
+    (the reference's distribution; the draws themselves differ)."""
+    return _trunc_normal((d_in, d_out), d_in ** -0.5, dtype, device,
+                         generator)
+
+
+def embed_init(generator, vocab: int, d: int, dtype, device):
+    return _trunc_normal((vocab, d), d ** -0.5, dtype, device, generator)
+
+
+# ---------------------------------------------------------------- norms ----
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    # statistics in float32, data flow in the compute dtype, as the reference
+    xf = x.to(torch.float32)
+    rs = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return x * rs.to(x.dtype) * (1.0 + scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope -----
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary position embedding.  x: (..., S, H, D); positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.unsqueeze(-1).to(torch.float32) * freq
+    cos = torch.cos(ang).unsqueeze(-2)          # broadcast over heads
+    sin = torch.sin(ang).unsqueeze(-2)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ activations --
+def activation(name: str):
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ------------------------------------------------------------ ft routing ---
+class FTCtx:
+    """Per-forward fault-tolerance context: a protection policy (or registry
+    name), per-site importance masks and per-site keys.
+
+    ``key`` is one key ``(2,)`` (one fault stream for the whole forward) or a
+    ``(B, 2)`` batch, one independent stream per batch row.  Site ``name``
+    draws from ``fold_in(key, crc32(name))``: site names are part of the
+    fault-key contract.  ``backend`` is "reference" or "fused".  (The
+    reference's ``protected_layers``, ``dyn``, ``t`` and ``ste`` fields come
+    with the DSE and training slices.)
+    """
+
+    def __init__(self, ft, key, masks=None, backend: str = "reference"):
+        from repro_torch.ft import as_policy
+        self.ft = as_policy(ft)
+        self.key = key
+        self.masks = masks or {}
+        self.backend = backend
+
+    def site_key(self, name: str) -> torch.Tensor:
+        return prng.fold_in(self.key, zlib.crc32(name.encode()))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
+           ftc: FTCtx | None = None, name: str = "") -> torch.Tensor:
+    """Every projection routes through here: the clean matmul, or, under a
+    policy, ``protect_linear`` on float32 operands with the result cast back
+    to the compute dtype (the reference's order)."""
+    if ftc is None or ftc.ft is None:
+        y = x @ w.reshape(w.shape[0], -1)
+        y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    else:
+        from repro_torch.ft import protect_linear
+        w2 = w.reshape(w.shape[0], -1).to(torch.float32)
+        imp = ftc.masks.get(name)
+        sk = ftc.site_key(name)
+        if sk.dim() == 2:
+            # per-row streams: x flattens to (B*S, K) row-major, so each
+            # row key repeats over that row's S positions
+            reps = max(x.numel() // x.shape[-1], 1) // sk.shape[0]
+            if reps != 1:
+                sk = torch.repeat_interleave(sk, reps, dim=0)
+        y = protect_linear(
+            sk, x.to(torch.float32).reshape(-1, w.shape[0]), w2, ftc.ft,
+            important=None if imp is None else torch.as_tensor(
+                imp, device=x.device),
+            backend=ftc.backend)
+        y = y.reshape(*x.shape[:-1], *w.shape[1:]).to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y

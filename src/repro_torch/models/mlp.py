@@ -1,0 +1,24 @@
+"""Dense (G)LU feed-forward block.  Counterpart of ``repro.models.mlp``."""
+from __future__ import annotations
+
+from repro_torch.models.common import activation, dense_init, linear
+
+
+def init(generator, cfg, dtype, device):
+    D, F = cfg.d_model, cfg.d_ff
+    p = {"wi": dense_init(generator, D, F, dtype, device),
+         "wo": dense_init(generator, F, D, dtype, device)}
+    if cfg.glu:
+        p["wg"] = dense_init(generator, D, F, dtype, device)
+    return p
+
+
+def apply(p, x, cfg, ftc=None, name="mlp"):
+    act = activation(cfg.act)
+    h = linear(x, p["wi"], ftc=ftc, name=f"{name}/wi")
+    if cfg.glu:
+        g = linear(x, p["wg"], ftc=ftc, name=f"{name}/wg")
+        h = act(h) * g
+    else:
+        h = act(h)
+    return linear(h, p["wo"], ftc=ftc, name=f"{name}/wo")

@@ -1,0 +1,75 @@
+"""Public model API: build a Model from (ModelConfig, RunConfig).
+
+Counterpart of ``repro.models.model`` for serving: ``init``, ``prefill``
+(with the cache ``grow``), ``decode_step`` and ``init_cache``.  Parameters
+and caches are plain dicts of tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import attention, transformer as T
+from repro_torch.models.common import dtype_of, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    run: RunConfig = RunConfig()
+
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        """Random parameters with the reference's init distributions, drawn
+        from ``generator`` (which must live on ``device``)."""
+        return T.init_params(generator, self.cfg, self.run,
+                             _device.resolve(device))
+
+    def prefill(self, params, batch, max_len: int | None = None, ftc=None):
+        """Forward over a prompt, building the caches.  ``max_len`` reserves
+        decode room in full-attention caches; rolling (window) caches keep
+        their fixed capacity.  Returns (caches, last_token_logits)."""
+        cfg, run = self.cfg, self.run
+        x, _, _ = T.assemble_inputs(params, cfg, batch)
+        h, caches = T.backbone(params, x, cfg=cfg, run=run, mode="prefill",
+                               ftc=ftc)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if max_len is not None:
+            S = x.shape[1]
+            pad = max(max_len - S, 0)
+            for lid, kind in zip(caches, T.layer_kinds(cfg)):
+                if pad and not (kind == "L" and cfg.window):
+                    caches[lid]["attn"] = {
+                        n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
+                        for n, c in caches[lid]["attn"].items()}
+        return caches, T.last_logits(params, cfg, h)
+
+    def decode_step(self, params, caches, token, pos, ftc=None):
+        """One-token decode.  token: (B,) int; pos: an int shared by the
+        batch or a (B,) tensor of per-row positions.  Returns (new_caches,
+        logits (B, V))."""
+        cfg, run = self.cfg, self.run
+        B = token.shape[0]
+        x = T.embed_tokens(params, cfg, token[:, None])
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
+        positions = (pos.reshape(B, 1) if pos.dim()
+                     else pos.expand(B).reshape(B, 1))
+        h, new_caches = T.backbone(params, x, cfg=cfg, run=run, mode="decode",
+                                   caches=caches, positions=positions,
+                                   ftc=ftc)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return new_caches, T.last_logits(params, cfg, h)
+
+    def init_cache(self, batch: int, seq_len: int, device=None):
+        """Zero caches for decoding at context length ``seq_len``."""
+        dev = _device.resolve(device)
+        dtype = dtype_of(self.run.compute_dtype)
+        return {f"l{i}": {"attn": attention.init_cache(
+                    self.cfg, kind, batch, seq_len, dtype, dev)}
+                for i, kind in enumerate(T.layer_kinds(self.cfg))}
+
+
+def build(cfg: ModelConfig, run: RunConfig | None = None) -> Model:
+    return Model(cfg, run or RunConfig())

@@ -1,0 +1,132 @@
+"""Decoder LM assembly over attention layers.
+
+Counterpart of ``repro.models.transformer`` for the kinds this slice serves
+(G global and L local attention).  Layers are kept as one dict per layer
+(``layers/l{i}``) whatever the config; the reference's layer *names*, which
+key every fault draw, follow its layout: ``l{i}`` for unrolled configs and
+``sb{si}/s{j}`` for scanned ones, where the scan body is traced once, so
+every layer of a segment shares its site names and fault keys.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import dtype_of, embed_init, rms_norm, softcap
+
+
+def layer_kinds(cfg):
+    return list(cfg.block_pattern) * cfg.n_blocks + list(cfg.tail)
+
+
+def layer_names(cfg):
+    """Site-name prefix of each layer, in layer order."""
+    if cfg.unroll:
+        return [f"l{i}" for i in range(cfg.n_layers)]
+    return [f"sb{si}/s{j}" for si, (pattern, n_rep) in enumerate(cfg.segments)
+            for _ in range(n_rep) for j in range(len(pattern))]
+
+
+def _check_kind(kind):
+    if kind not in ("G", "L"):
+        raise NotImplementedError(f"layer kind {kind!r} comes with its "
+                                  "model family (ROADMAP.md)")
+
+
+# ------------------------------------------------------------------ init ---
+def init_layer(generator, cfg, kind, dtype, device):
+    _check_kind(kind)
+    if cfg.moe is not None or cfg.enc_dec:
+        raise NotImplementedError("MoE and encoder-decoder layers are not "
+                                  "ported yet")
+    D = cfg.d_model
+    p = {"ln1": torch.zeros((D,), device=device),
+         "attn": attention.init(generator, cfg, dtype, device)}
+    if cfg.post_norm:
+        p["ln1_post"] = torch.zeros((D,), device=device)
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.zeros((D,), device=device)
+        p["ffn"] = mlp.init(generator, cfg, dtype, device)
+        if cfg.post_norm:
+            p["ln2_post"] = torch.zeros((D,), device=device)
+    return p
+
+
+def init_params(generator, cfg, run, device):
+    dtype = dtype_of(run.param_dtype)
+    params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, dtype,
+                                  device),
+              "final_norm": torch.zeros((cfg.d_model,), device=device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = embed_init(generator, cfg.vocab, cfg.d_model,
+                                       dtype, device)
+    params["layers"] = {
+        f"l{i}": init_layer(generator, cfg, kind, dtype, device)
+        for i, kind in enumerate(layer_kinds(cfg))}
+    return params
+
+
+# ----------------------------------------------------------------- layer ---
+def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
+                ftc=None, name="blk"):
+    """One residual layer.  Returns (x, new_cache)."""
+    _check_kind(kind)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    m, c = attention.apply(p["attn"], h, cfg=cfg, run=run, kind=kind,
+                           positions=positions, ftc=ftc, name=f"{name}/attn",
+                           cache=None if cache is None else cache["attn"],
+                           mode=mode)
+    if cfg.post_norm:
+        m = rms_norm(m, p["ln1_post"], cfg.norm_eps)
+    x = x + m
+    if "ffn" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        f = mlp.apply(p["ffn"], h, cfg, ftc=ftc, name=f"{name}/mlp")
+        if cfg.post_norm:
+            f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+        x = x + f
+    return x, {"attn": c}
+
+
+# -------------------------------------------------------------- backbone ---
+def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
+             ftc=None):
+    """Apply all layers.  Returns (hidden, new_caches)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    new_caches = {}
+    for i, (kind, name) in enumerate(zip(layer_kinds(cfg), layer_names(cfg))):
+        lid = f"l{i}"
+        x, new_caches[lid] = apply_layer(
+            params["layers"][lid], x, kind=kind, cfg=cfg, run=run, mode=mode,
+            cache=None if caches is None else caches[lid],
+            positions=positions, ftc=ftc, name=name)
+    return x, new_caches
+
+
+# ------------------------------------------------------------- embedding ---
+def embed_tokens(params, cfg, tokens):
+    e = params["embed"][tokens]
+    if cfg.scale_embeds:
+        e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype)
+    return e
+
+
+def assemble_inputs(params, cfg, batch):
+    """Token-only input embedding (the frontends come with their families).
+    Returns (x, labels, mask)."""
+    if cfg.frontend or cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.frontend or 'encoder'} inputs are "
+                                  "not ported yet")
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    labels = tokens[:, 1:]
+    return x, labels, torch.ones_like(labels, dtype=torch.bool)
+
+
+def last_logits(params, cfg, h):
+    """float32 logits at the last position."""
+    emb = params.get("unembed", params["embed"])
+    logits = h[:, -1].to(torch.float32) @ emb.to(torch.float32).T
+    return softcap(logits, cfg.logit_softcap)

@@ -1,0 +1,41 @@
+"""The port stands alone: importing it pulls in neither jax nor triton, and
+no module of it (nor chip_smoke.py) imports jax or the JAX package."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_triton_out():
+    code = ("import sys, repro_torch, repro_torch.ft, repro_torch.serve, "
+            "repro_torch.convert, repro_torch.launch.serve, "
+            "repro_torch.kernels.fused_decode.kernel; "
+            "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
+            "if m in sys.modules]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "triton"), (f, mod)
