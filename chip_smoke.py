@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and hold its kernel
-against the plain version.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and hold each of its
+kernels against its plain version.
 
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
@@ -8,25 +8,40 @@ Phases, in order; any failure raises and the script exits nonzero without
 its last line:
 
   1. device: the card's name and power limit;
-  2. build: the port's CUDA kernels from the checkout's sources (build/);
+  2. build: the port's four CUDA kernels from the checkout's sources
+     (build/), one nvcc each, all started together;
   3. kernels: fused_decode against its plain version, bitwise, in every mode
      at the main path's shapes, on random operands and on operands that
      drive the epilogue's clamps (24-bit saturation, t's upper clamp of 16,
      q_scale above the natural t); timed beside its bound, the plain version
      and one PyTorch call (torch._int_mm on the same int8 operands);
-  4. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed,
-     all 24 layers), B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4:
+  4. dla kernels: qmatmul, protected_mm and fault_inject against their plain
+     versions, bitwise, at the main path's shapes and a ragged one, on
+     random and saturating operands, t 0/1/16, BER 0/1e-2/1.0, protection
+     counts 0 to 8, a mixed important mask; timed like fused_decode (no
+     PyTorch call computes fault_inject's function);
+  5. entry points: quant_linear and inject, the kernel-level entry points of
+     qmatmul and fault_inject, at the decode shapes, equal to the CPU;
+  6. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed),
+     B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4, fused backend:
      fused tokens equal reference tokens, the kernel ran once per
      projection of every step, and its device time over that generation
      (CUDA events around each launch) is the kernels line's ``ms``;
-  5. faults: protect_linear fused equals reference on the card, for all 7
+  7. pallas engine: the same model, all 24 layers, through
+     Engine(ft_backend="pallas", ft_t=T) with T calibrated on layer 0's
+     first projection: protected_mm launched once per projection of every
+     step, its device time, and a second generation in which every launch
+     is held bitwise to protected_mm_ref, with the same tokens;
+  8. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
-     equals the CPU; the reduced engine under cl with weight faults;
-  6. a ``kernels`` JSON line, then the last line
+     equals the CPU; pallas equals the CPU for all 7 policies; the reduced
+     engine on both backends equals the CPU's;
+  9. a ``kernels`` JSON line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import subprocess
@@ -47,6 +62,13 @@ POLICIES = ("base", "crt1", "crt2", "crt3", "arch", "alg", "cl")
 MODES = ([(pr, d, False) for pr in (False, True)
           for d in ("none", "reuse", "w", "wcl")]
          + [(pr, d, True) for pr in (False, True) for d in ("none", "w", "wcl")])
+KERNELS = ("fused_decode", "qmatmul", "protected_mm", "fault_inject")
+# protected_mm's checks: (t, ber, ib, nb), t at 0/1/16, BER 0/1e-2/1.0, the
+# protection counts at 0 and 8 and between
+PM_EDGES = ((0, 0.0, 2, 1), (1, 1e-2, 0, 0), (16, 1e-2, 8, 8),
+            (3, 1.0, 8, 0), (16, 1.0, 0, 8), (5, 1e-2, 2, 1))
+# the main path's mode (crt3 at BER 1e-4, no important mask), timed
+MAIN_PM = dict(t=12, ber=1e-4, ib=3, nb=3)
 
 
 def emit(obj):
@@ -55,21 +77,32 @@ def emit(obj):
 
 def cuda_ms(torch, fn, iters):
     """Mean device time of ``fn`` in ms over ``iters`` launches, after a
-    warm-up, from CUDA events around each launch.  The operands stay in L2
-    between launches, as on the main path, where ``quantize`` writes the
-    int8 weights (at most 17.7 MB of the 50 MB L2) just before the kernel
-    reads them."""
+    warm-up, from CUDA events around each launch.  The launches queue up
+    behind a ~50-ms device sleep, so the events time the device's work back
+    to back and not the host's launch calls (which take longer than a small
+    kernel).  The operands stay in L2 between launches, as on the main path,
+    where ``quantize`` writes the int8 weights (at most 17.7 MB of the 50 MB
+    L2) just before the kernel reads them."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)      # ~50 ms at 1.98 GHz
     for s, e in ev:
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def roofline(nbytes, ops):
+    """Least time (ms) for ``nbytes`` over HBM or ``ops`` int8 operations at
+    the int8 peak, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def bound(M, K, N, mode):
@@ -87,9 +120,24 @@ def bound(M, K, N, mode):
         nbytes += K * N
     if perrow_wf:
         nbytes += 4 * M * K * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline(nbytes, ops)
+
+
+def launches_per_generation():
+    """{(M, K, N): launches of one protected projection kernel in one
+    generation}: one per projection of the prefill (M = B x prompt) and of
+    each decode step (M = B)."""
+    per_gen = {}
+    for kn in LAYER_KN:
+        per_gen[(PROMPT * B,) + kn] = per_gen.get((PROMPT * B,) + kn, 0) + 24
+        per_gen[(B,) + kn] = per_gen.get((B,) + kn, 0) + 24 * NEW
+    return per_gen
+
+
+def unprotected_planes(M, prot):
+    """Plane words a flip epilogue must read: per output, its unprotected
+    bits (``8 - prot`` of its channel, clamped to 0..8)."""
+    return M * int((8 - prot.clamp(0, 8)).sum())
 
 
 def phase_device(torch):
@@ -102,16 +150,27 @@ def phase_device(torch):
     return name, smi
 
 
+def _kernel_module(name):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+
+
 def phase_build():
-    from repro_torch.kernels.fused_decode import kernel
+    """One nvcc per kernel, all started together."""
+    def build(name):
+        t0 = time.perf_counter()
+        path, report = _kernel_module(name).build()
+        return name, path, report, time.perf_counter() - t0
     t0 = time.perf_counter()
-    path, report = kernel.build()
-    secs = time.perf_counter() - t0
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
-    emit({"phase": "build", "kernel": "fused_decode", "library":
-          str(path.relative_to(ROOT)), "build_s": round(secs, 3)})
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build, KERNELS))
+    for name, path, report, secs in built:
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas [{name}]:", line.strip())
+        emit({"phase": "build", "kernel": name, "library":
+              str(path.relative_to(ROOT)), "build_s": round(secs, 3)})
+    emit({"phase": "build", "all_s": round(time.perf_counter() - t0, 3)})
 
 
 def _operands(torch, g, dev, M, K, N):
@@ -194,11 +253,7 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     max_err, rows = 0, []
-    per_gen = {}
-    for kn in LAYER_KN:
-        per_gen[(PROMPT * B,) + kn] = per_gen.get((PROMPT * B,) + kn, 0) + 24
-        per_gen[(B,) + kn] = per_gen.get((B,) + kn, 0) + 24 * NEW
-    for (M, K, N), count in per_gen.items():
+    for (M, K, N), count in launches_per_generation().items():
         ops = _operands(torch, g, dev, M, K, N)
         max_err = max(max_err, _check_modes(torch, g, ops, (3,)))
         qs = torch.tensor([3], dtype=torch.int32, device=dev)
@@ -225,40 +280,255 @@ def phase_kernels(torch):
     return rows, max_err
 
 
-class LaunchTimer:
-    """Stands in for fused_decode's loaded library during the main path's
-    run and records a CUDA event pair around each launch, so the kernels
-    line's ``ms`` is the kernel's device time in that run.  A pair that
-    finds the card idle also holds the host time of the launch call, from
-    the first event to the first kernel's start."""
+# ------------------------------------------------ qmatmul, protected_mm, inject
+def _dla_operands(torch, g, dev, M, K, N, edges=False):
+    """int8 operands (with edges: rows and columns that saturate the 24-bit
+    accumulator at both ends once K > 516, and a zero row); two plane
+    streams as int32 bit patterns with low words mixed in (BER 1e-2 flips)
+    and all-ones words in row 0 (BER 1.0 leaves them); a mixed important
+    mask; int32 8-bit values and per-column protection counts 0..8."""
+    xq = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    if edges:
+        xq[0], xq[1 % M], xq[2 % M] = 127, -128, 0
+        wq[:, 0], wq[:, 1] = 127, -128
 
-    def __init__(self, torch, lib):
+    def planes():
+        from repro_torch.core import prng
+        w = torch.randint(0, 1 << 32, (8, M, N), generator=g, device=dev,
+                          dtype=torch.int64)
+        low = torch.rand((8, M, N), generator=g, device=dev) < 0.05
+        w = torch.where(low, w >> 8, w)
+        w[:, 0] = (1 << 32) - 1
+        return prng.as_int32_bits(w)
+    return dict(
+        xq=xq, wq=wq, ro=planes(), ri=planes(),
+        imp=(torch.rand(N, generator=g, device=dev) < 0.4).to(torch.int32),
+        x32=torch.randint(-128, 128, (M, N), generator=g, device=dev,
+                          dtype=torch.int32),
+        prot=(torch.arange(N, device=dev) % 9).to(torch.int32))
+
+
+def _check_dla(torch, ops):
+    """Each DLA kernel against its plain version, bitwise, on ``ops``:
+    qmatmul at t 0/1/16, protected_mm at PM_EDGES, fault_inject at BER
+    0/1e-2/1.0.  Returns {kernel: max |difference|} (0, or it raised)."""
+    from repro_torch.kernels.fault_inject.kernel import fault_inject
+    from repro_torch.kernels.fault_inject.ref import inject_ref
+    from repro_torch.kernels.protected_mm.kernel import protected_mm
+    from repro_torch.kernels.protected_mm.ref import protected_mm_ref
+    from repro_torch.kernels.qmatmul.kernel import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    xq, wq = ops["xq"], ops["wq"]
+    cases = [("qmatmul", t, functools.partial(qmatmul, xq, wq, t),
+              functools.partial(qmatmul_ref, xq, wq, t)) for t in (0, 1, 16)]
+    pm_args = (xq, wq, ops["ro"], ops["ri"], ops["imp"])
+    for t, ber, ib, nb in PM_EDGES:
+        kw = dict(t=t, ber=ber, ib=ib, nb=nb)
+        cases.append(("protected_mm", kw,
+                      functools.partial(protected_mm, *pm_args, **kw),
+                      functools.partial(protected_mm_ref, *pm_args, **kw)))
+    fi_args = (ops["x32"], ops["ro"], ops["prot"])
+    for ber in (0.0, 1e-2, 1.0):
+        cases.append(("fault_inject", ber,
+                      functools.partial(fault_inject, *fi_args, ber),
+                      functools.partial(inject_ref, *fi_args, ber)))
+    err = dict.fromkeys(KERNELS[1:], 0)
+    for name, case, kernel_fn, plain_fn in cases:
+        y = kernel_fn()
+        torch.cuda.synchronize()
+        e = int((y.to(torch.int32) - plain_fn().to(torch.int32)).abs().max())
+        if e:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{tuple(xq.shape)} x {tuple(wq.shape)} "
+                                 f"{case}: {e}")
+        err[name] = max(err[name], e)
+    return err
+
+
+def phase_dla_kernels(torch):
+    """qmatmul, protected_mm and fault_inject against their plain versions,
+    bitwise, at the main path's shapes (random and saturating operands) and
+    two ragged ones; per-launch timings at the main path's shapes, in the
+    main path's mode for protected_mm (crt3: ib = nb = 3, no important
+    channel, BER 1e-4)."""
+    from repro_torch.kernels.fault_inject.kernel import fault_inject
+    from repro_torch.kernels.fault_inject.ref import inject_ref
+    from repro_torch.kernels.protected_mm.kernel import protected_mm
+    from repro_torch.kernels.protected_mm.ref import protected_mm_ref
+    from repro_torch.kernels.qmatmul.kernel import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    max_err = dict.fromkeys(KERNELS[1:], 0)
+    rows = {k: [] for k in KERNELS[1:]}
+
+    def merge(err):
+        for k, e in err.items():
+            max_err[k] = max(max_err[k], e)
+    for M, K, N in ((5, 200, 130), (37, 1000, 130)):
+        for edges in (False, True):
+            merge(_check_dla(torch, _dla_operands(torch, g, dev, M, K, N,
+                                                  edges)))
+    for (M, K, N), count in launches_per_generation().items():
+        ops = _dla_operands(torch, g, dev, M, K, N)
+        merge(_check_dla(torch, ops))
+        merge(_check_dla(torch, _dla_operands(torch, g, dev, M, K, N,
+                                              edges=True)))
+        xq, wq = ops["xq"], ops["wq"]
+        t = MAIN_PM["t"]
+        xpad = torch.zeros((max(M, 24), K), dtype=torch.int8, device=dev)
+        xpad[:M] = xq                    # torch._int_mm takes M > 16
+        lib = functools.partial(torch._int_mm, xpad, wq)
+        lib_label = "torch._int_mm, the GEMM part"
+        gemm_bytes, gemm_ops = M * K + K * N + M * N, 2 * M * K * N
+
+        b_ms, b_by = roofline(gemm_bytes, gemm_ops)
+        rows["qmatmul"].append(dict(
+            shape=[M, K, N], mode=f"t={t}", launches_per_generation=0,
+            kernel_ms=cuda_ms(torch, functools.partial(qmatmul, xq, wq, t),
+                              20),
+            bound_ms=b_ms, bound_by=b_by,
+            plain_ms=cuda_ms(torch, functools.partial(qmatmul_ref, xq, wq,
+                                                      t), 5),
+            library_ms=cuda_ms(torch, lib, 20), library=lib_label))
+
+        imp0 = torch.zeros(N, dtype=torch.int32, device=dev)
+        prot = torch.full((N,), MAIN_PM["nb"], dtype=torch.int32, device=dev)
+        pm_args = (xq, wq, ops["ro"], ops["ri"], imp0)
+        b_ms, b_by = roofline(
+            gemm_bytes + 4 * N + 4 * unprotected_planes(M, prot), gemm_ops)
+        rows["protected_mm"].append(dict(
+            shape=[M, K, N], mode="crt3: ib=nb=3, no important channel, "
+            f"BER 1e-4, t={t}", launches_per_generation=count,
+            kernel_ms=cuda_ms(torch, functools.partial(
+                protected_mm, *pm_args, **MAIN_PM), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            plain_ms=cuda_ms(torch, functools.partial(
+                protected_mm_ref, *pm_args, **MAIN_PM), 5),
+            library_ms=cuda_ms(torch, lib, 20), library=lib_label))
+
+        fi_args = (ops["x32"], ops["ro"], prot, MAIN_PM["ber"])
+        b_ms, b_by = roofline(8 * M * N + 4 * N
+                              + 4 * unprotected_planes(M, prot), 0)
+        rows["fault_inject"].append(dict(
+            shape=[M, N], mode="protect=3 on every column, BER 1e-4",
+            launches_per_generation=0,
+            kernel_ms=cuda_ms(torch, functools.partial(fault_inject,
+                                                       *fi_args), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            plain_ms=cuda_ms(torch, functools.partial(inject_ref, *fi_args),
+                             5),
+            library_ms=None, library="none computes this function"))
+        for name in rows:
+            emit({"phase": "kernel", "kernel": name, **rows[name][-1]})
+        del ops
+    torch.cuda.synchronize()
+    return rows, max_err
+
+
+def phase_entry_points(torch):
+    """The kernel-level entry points of qmatmul and fault_inject
+    (``quant_linear``, ``inject``) at the decode shapes, each equal to the
+    CPU port bitwise.  Counts and CUDA events cover these calls only.
+    Returns ({kernel: (launches, device ms)}, {kernel: (bound ms, side)}),
+    the bound from this run's inputs."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.fault_inject import kernel as fi_kernel
+    from repro_torch.kernels.fault_inject.ops import inject
+    from repro_torch.kernels.qmatmul import kernel as qm_kernel
+    from repro_torch.kernels.qmatmul.ops import quant_linear
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    shapes = list(dict.fromkeys(LAYER_KN))
+    cases = [tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((B, K)).astype(np.float32),
+        rng.standard_normal((K, N)).astype(np.float32),
+        rng.integers(-128, 128, (B, N)).astype(np.int32),
+        (np.arange(N) % 9).astype(np.int32))) for K, N in shapes]
+    mods = {"qmatmul": qm_kernel, "fault_inject": fi_kernel}
+    timers = {k: LaunchTimer(torch, mod._lib(), k) for k, mod in mods.items()}
+    real_libs = {k: mod._lib for k, mod in mods.items()}
+    for k, mod in mods.items():
+        mod._lib = functools.partial(timers.get, k)
+    qm_kernel.qmatmul.launches = fi_kernel.fault_inject.launches = 0
+    got = [(quant_linear(x.to(dev), w.to(dev), 9),    # the paths' runs
+            inject(prng.PRNGKey(100 + i, dev), v.to(dev), prot.to(dev), 1e-2))
+           for i, (x, w, v, prot) in enumerate(cases)]
+    torch.cuda.synchronize()
+    launches = {"qmatmul": qm_kernel.qmatmul.launches,
+                "fault_inject": fi_kernel.fault_inject.launches}
+    out = {}
+    for k, mod in mods.items():
+        mod._lib = real_libs[k]
+        if len(timers[k].events) != launches[k] or not launches[k]:
+            raise AssertionError(f"{k}: {len(timers[k].events)} timed "
+                                 f"launches, {launches[k]} counted")
+        out[k] = (launches[k], timers[k].ms())
+    for i, ((x, w, v, prot), (y, z)) in enumerate(zip(cases, got)):
+        if not torch.equal(y.cpu(), quant_linear(x, w, 9)):
+            raise AssertionError("quant_linear on the card differs from the "
+                                 f"CPU at {tuple(w.shape)}")
+        if not torch.equal(z.cpu(), inject(prng.PRNGKey(100 + i), v, prot,
+                                           1e-2)):
+            raise AssertionError("inject on the card differs from the CPU at "
+                                 f"{tuple(v.shape)}")
+    bounds = {"qmatmul": [roofline(B * K + K * N + B * N, 2 * B * K * N)
+                          for K, N in shapes],
+              "fault_inject": [roofline(8 * B * N + 4 * N + 4 *
+                                        unprotected_planes(B, c[3]), 0)
+                               for c, (K, N) in zip(cases, shapes)]}
+    entry_bound = {k: (sum(b for b, _ in v),
+                       "bytes" if all(s == "bytes" for _, s in v)
+                       else "operations") for k, v in bounds.items()}
+    emit({"phase": "entry_points", "shapes": [list(kn) for kn in shapes],
+          "batch": B, **{f"{k}_launches": v[0] for k, v in out.items()},
+          **{f"{k}_ms": v[1] for k, v in out.items()},
+          **{f"{k}_bound_ms": v[0] for k, v in entry_bound.items()},
+          "equal_to_cpu": True})
+    return out, entry_bound
+
+class LaunchTimer:
+    """Stands in for a kernel's loaded library during a path's run and
+    records a CUDA event pair around each launch of ``<kernel>_launch``, so
+    the kernels line's ``ms`` is the kernel's device time in that run.  A
+    pair that finds the card idle also holds the host time of the launch
+    call, from the first event to the first kernel's start."""
+
+    def __init__(self, torch, lib, kernel):
         self.torch, self.lib, self.events = torch, lib, []
+        self.launch_name = f"{kernel}_launch"
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        fn = getattr(self.lib, name)
+        if name != self.launch_name:
+            return fn
 
-    def fused_decode_launch(self, *args):
-        start, end = (self.torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-        start.record()
-        err = self.lib.fused_decode_launch(*args)
-        end.record()
-        self.events.append((start, end))
-        return err
+        def timed(*args):
+            start, end = (self.torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            err = fn(*args)
+            end.record()
+            self.events.append((start, end))
+            return err
+        return timed
 
     def ms(self):
         self.torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def phase_engine(torch):
-    """Full-width danube, fused vs reference tokens, launches counted."""
+def full_model(torch):
+    """Full-width h2o-danube-1.8b, random bf16 weights from a seed, on the
+    card; a B x PROMPT prompt; crt3 at BER 1e-4 without weight faults."""
     from repro_torch import ft
     from repro_torch.configs import get_config, get_run_config
-    from repro_torch.kernels.fused_decode import kernel
     from repro_torch.models import build
-    from repro_torch.serve.engine import Engine, ServeConfig
     dev = torch.device("cuda")
     cfg = get_config("h2o-danube-1.8b")
     model = build(cfg, get_run_config("h2o-danube-1.8b"))
@@ -267,24 +537,40 @@ def phase_engine(torch):
     params = model.init(g, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
     batch = {"tokens": torch.randint(0, cfg.vocab, (B, PROMPT), generator=g,
                                      device=dev)}
-    policy = ft.get_policy("crt3", ber=1e-4, weight_faults=False)
+    return dict(cfg=cfg, model=model, params=params, batch=batch,
+                policy=ft.get_policy("crt3", ber=1e-4, weight_faults=False),
+                init_s=init_s,
+                n_params=sum(t.numel() for t in _leaves(params)))
+
+
+def _timed_prefill(torch, engine, batch):
+    """Host ms of one prefill-only generation, after a warm-up one."""
+    engine.generate(batch, max_new_tokens=0, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(batch, max_new_tokens=0, seed=0)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_engine(torch, m):
+    """Full-width danube, fused vs reference tokens, launches counted."""
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg, model, params, batch, policy = (m[k] for k in (
+        "cfg", "model", "params", "batch", "policy"))
     engines = {b: Engine(model, params, cfg=ServeConfig(max_new_tokens=NEW),
                          policy=policy, ft_backend=b)
                for b in ("fused", "reference")}
 
     fused = engines["fused"]
-    fused.generate(batch, max_new_tokens=0, seed=0)     # warm-up prefill
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fused.generate(batch, max_new_tokens=0, seed=0)
-    torch.cuda.synchronize()
-    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_ms = _timed_prefill(torch, fused, batch)
 
     torch.cuda.reset_peak_memory_stats()
-    timer, real_lib = LaunchTimer(torch, kernel._lib()), kernel._lib
+    timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+    real_lib = kernel._lib
     kernel._lib = lambda: timer
     kernel.fused_decode.launches = 0        # the main path's run starts here
     t0 = time.perf_counter()
@@ -316,11 +602,12 @@ def phase_engine(torch):
                              f"{toks.cpu()}\n{ref_toks.cpu()}")
     if fused.stats.roundtrips != 1 + NEW:
         raise AssertionError(f"roundtrips {fused.stats.roundtrips}")
-    prof = phase_profile(torch, model, params, batch, policy, toks)
-    emit({"phase": "engine", "arch": cfg.name, "layers": cfg.n_layers,
-          "params": n_params, "param_dtype": "bfloat16", "batch": B,
-          "prompt": PROMPT, "new_tokens": NEW, "policy": "crt3",
-          "ber": 1e-4, "init_s": round(init_s, 3),
+    prof = phase_profile(torch, m, toks, "fused", None, "fused_decode_")
+    emit({"phase": "engine", "backend": "fused", "arch": cfg.name,
+          "layers": cfg.n_layers, "params": m["n_params"],
+          "param_dtype": "bfloat16", "batch": B, "prompt": PROMPT,
+          "new_tokens": NEW, "policy": "crt3", "ber": 1e-4,
+          "init_s": round(m["init_s"], 3),
           "prefill_ms": prefill_ms,
           "decode_tokens_per_s": B * NEW / (total_s - prefill_ms / 1e3),
           "generate_s": total_s, "reference_generate_s": ref_s,
@@ -328,15 +615,130 @@ def phase_engine(torch):
           "fused_decode_ms": kernel_ms,
           "tokens_equal": True, "tokens_row0": toks[0].tolist()})
     for name, row in prof.items():
-        emit({"phase": "profile", "step": name, **row})
-    del engines, fused, params
+        emit({"phase": "profile", "backend": "fused", "step": name, **row})
+    del engines, fused
     torch.cuda.empty_cache()
     return launches, kernel_ms
 
 
-def _profile(torch, fn):
+def phase_pallas_engine(torch, m):
+    """Full-width danube through Engine(ft_backend="pallas", ft_t=T): T is
+    calibrated on layer 0's first projection (attn/wq) on the prompt; the
+    timed generation counts and times protected_mm's launches; a second
+    generation holds every launch bitwise to protected_mm_ref on the same
+    operands and gives the same tokens."""
+    from repro_torch import ft
+    from repro_torch.ft import api
+    from repro_torch.kernels.protected_mm import kernel as pm_kernel
+    from repro_torch.kernels.protected_mm.ref import protected_mm_ref
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg, model, params, batch, policy = (m[k] for k in (
+        "cfg", "model", "params", "batch", "policy"))
+    D = cfg.d_model
+    with torch.no_grad():
+        l0 = params["layers"]["l0"]
+        h = rms_norm(embed_tokens(params, cfg, batch["tokens"]), l0["ln1"],
+                     cfg.norm_eps)
+        T = ft.calibrate_t(h.to(torch.float32).reshape(-1, D),
+                           l0["attn"]["wq"].reshape(D, -1).to(torch.float32))
+    print(f"pallas engine: ft_t = {T} (ft.calibrate_t on layer 0's attn/wq "
+          "over the prompt)", flush=True)
+    engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=NEW),
+                    policy=policy, ft_backend="pallas", ft_t=T)
+    prefill_ms = _timed_prefill(torch, engine, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    timer = LaunchTimer(torch, pm_kernel._lib(), "protected_mm")
+    real_lib = pm_kernel._lib
+    pm_kernel._lib = lambda: timer
+    pm_kernel.protected_mm.launches = 0     # the path's run starts here
+    t0 = time.perf_counter()
+    toks = engine.generate(batch, seed=0)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = pm_kernel.protected_mm.launches  # ... and ends here
+    pm_kernel._lib = real_lib
+    kernel_ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated()
+    want = 7 * cfg.n_layers * (1 + NEW)
+    if launches != want or len(timer.events) != launches:
+        raise AssertionError(f"protected_mm launched {launches} times "
+                             f"({len(timer.events)} timed) on the pallas "
+                             f"path, expected {want}")
+    if toks.shape != (B, NEW) or not bool(((toks >= 0) & (toks < cfg.vocab))
+                                          .all()):
+        raise AssertionError(f"bad tokens {toks.shape}")
+    if engine.stats.roundtrips != 1 + NEW:
+        raise AssertionError(f"roundtrips {engine.stats.roundtrips}")
+
+    real = api.protected_mm
+    n_checked = 0
+
+    def checked(xq, wq, rnd_ord, rnd_imp, imp, **kw):
+        nonlocal n_checked
+        y = real(xq, wq, rnd_ord, rnd_imp, imp, **kw)
+        want = protected_mm_ref(xq, wq, rnd_ord, rnd_imp, imp, **kw)
+        if not torch.equal(y, want):
+            raise AssertionError(
+                f"protected_mm launch {n_checked} of the checked generation "
+                f"differs from protected_mm_ref at {tuple(xq.shape)} x "
+                f"{tuple(wq.shape)} {kw}")
+        n_checked += 1
+        return y
+    api.protected_mm = checked          # the backend's call of the kernel
+    t0 = time.perf_counter()
+    toks_checked = engine.generate(batch, seed=0)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    api.protected_mm = real
+    if n_checked != want:
+        raise AssertionError(f"{n_checked} launches checked, expected {want}")
+    if not torch.equal(toks, toks_checked):
+        raise AssertionError("the checked pallas generation gave other "
+                             f"tokens:\n{toks.cpu()}\n{toks_checked.cpu()}")
+    prof = phase_profile(torch, m, toks, "pallas", T, "protected_mm_kernel")
+    planes = plane_cost(torch)
+    emit({"phase": "engine", "backend": "pallas", "arch": cfg.name,
+          "layers": cfg.n_layers, "params": m["n_params"],
+          "param_dtype": "bfloat16", "batch": B, "prompt": PROMPT,
+          "new_tokens": NEW, "policy": "crt3", "ber": 1e-4, "ft_t": T,
+          "prefill_ms": prefill_ms,
+          "decode_tokens_per_s": B * NEW / (total_s - prefill_ms / 1e3),
+          "generate_s": total_s, "checked_generate_s": checked_s,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "protected_mm_ms": kernel_ms, "launches_checked": n_checked,
+          "checked_tokens_equal": True, "tokens_row0": toks[0].tolist()})
+    for name, row in prof.items():
+        emit({"phase": "profile", "backend": "pallas", "step": name, **row})
+    emit({"phase": "planes", **planes})
+    return launches, kernel_ms
+
+
+def plane_cost(torch):
+    """Device ms of one decode step's plane draws (2 streams x 8 planes per
+    projection, 7 projections x 24 layers): over the output padded to 128
+    rows, as the pallas backend draws them (the reference's stream), and
+    over the B rows it uses."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.fault_inject.ops import random_planes
+    key = prng.PRNGKey(0, torch.device("cuda"))
+    out = {}
+    for label, rows in (("padded_128_rows", 128), (f"unpadded_{B}_rows", B)):
+        per_layer = 0.0
+        for _, N in LAYER_KN:
+            n = -(-N // 128) * 128 if rows == 128 else N
+            per_layer += 2 * cuda_ms(torch, functools.partial(
+                random_planes, key, (rows, n)), 5)
+        out[f"decode_step_device_ms_{label}"] = 24 * per_layer
+    return out
+
+
+def _profile(torch, fn, kernel):
     """Wall time of ``fn`` and the device time of its kernels, from one run
-    under torch.profiler: all kernels, and those of fused_decode."""
+    under torch.profiler: all kernels, and those whose name holds
+    ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -353,18 +755,20 @@ def _profile(torch, fn):
         us = e.device_time_total
         dev_us += us
         n_kernels += 1
-        if "fused_decode_" in e.name:
+        if kernel in e.name:
             kern_us += us
     return {"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
-            "fused_decode_ms": kern_us / 1e3, "kernels_launched": n_kernels}
+            "kernel": kernel, "kernel_ms": kern_us / 1e3,
+            "kernels_launched": n_kernels}
 
 
-def phase_profile(torch, model, params, batch, policy, toks):
-    """Where a prefill and a decode step of the fused engine spend time."""
+def phase_profile(torch, m, toks, backend, t, kernel):
+    """Where a prefill and a decode step of the engine spend time."""
     from repro_torch.core import prng
     from repro_torch.models.common import FTCtx
+    model, params, batch = m["model"], m["params"], m["batch"]
     dev = params["embed"].device
-    ftc = FTCtx(policy, prng.PRNGKey(0, dev), backend="fused")
+    ftc = FTCtx(m["policy"], prng.PRNGKey(0, dev), backend=backend, t=t)
     out = {}
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -373,7 +777,7 @@ def phase_profile(torch, model, params, batch, policy, toks):
         torch.cuda.synchronize()
         wall = {"prefill": time.perf_counter() - t0}
         out["prefill"] = _profile(torch, lambda: model.prefill(
-            params, batch, max_len=PROMPT + NEW, ftc=ftc))
+            params, batch, max_len=PROMPT + NEW, ftc=ftc), kernel)
         step = functools.partial(model.decode_step, params, caches,
                                  toks[:, 0], PROMPT, ftc=ftc)
         step()
@@ -382,7 +786,7 @@ def phase_profile(torch, model, params, batch, policy, toks):
         step()
         torch.cuda.synchronize()
         wall["decode_step"] = time.perf_counter() - t0
-        out["decode_step"] = _profile(torch, step)
+        out["decode_step"] = _profile(torch, step, kernel)
     for name, row in out.items():
         row["wall_ms"] = 1e3 * wall[name]
         row["device_busy_share"] = row["device_kernel_ms"] / row["wall_ms"]
@@ -397,8 +801,14 @@ def _leaves(tree):
             yield v
 
 
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
 def phase_faults(torch):
-    """protect_linear on the card: fused == reference == the CPU, bitwise."""
+    """protect_linear on the card: fused == reference == the CPU and pallas
+    == the CPU, bitwise; the reduced engines on the card equal the CPU's."""
     import numpy as np
 
     from repro_torch import ft
@@ -424,6 +834,21 @@ def phase_faults(torch):
                     raise AssertionError(f"{name} {backend} on the card "
                                          "differs from the CPU reference")
                 checked += 1
+    n_pallas = 0
+    for name in POLICIES:
+        pol = ft.get_policy(name, ber=1e-2)
+        key = prng.PRNGKey(9)
+        for t in (5, None):
+            for lp in ((True, False) if pol.arch.whole_layer_tmr
+                       else (True,)):
+                kw = dict(backend="pallas", t=t, layer_protected=lp)
+                cpu = ft.protect_linear(key, x, w, pol, imp, **kw)
+                y = ft.protect_linear(key.to(dev), x.to(dev), w.to(dev), pol,
+                                      imp.to(dev), **kw)
+                if not torch.equal(y.cpu(), cpu):
+                    raise AssertionError(f"{name} pallas {kw} on the card "
+                                         "differs from the CPU")
+                n_pallas += 1
     cfg = get_config("h2o-danube-1.8b", reduced=True)
     model = build(cfg, RunConfig(param_dtype="float32",
                                  compute_dtype="float32"))
@@ -437,11 +862,79 @@ def phase_faults(torch):
             for b in ("reference", "fused")]
     if not torch.equal(*toks):
         raise AssertionError("reduced engine: fused tokens differ")
+    pol = ft.get_policy("crt3", ber=3e-3, weight_faults=False)
+    toks = [Engine(model, p, cfg=ServeConfig(max_new_tokens=4), policy=pol,
+                   ft_backend="pallas", ft_t=6).generate(
+                       {"tokens": batch["tokens"].to(d)}, seed=1).cpu()
+            for d, p in ((dev, params), ("cpu", _to(params, "cpu")))]
+    if not torch.equal(*toks):
+        raise AssertionError("reduced pallas engine: the card's tokens "
+                             f"differ from the CPU's:\n{toks[0]}\n{toks[1]}")
     _, logits = model.prefill(params, batch)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
     emit({"phase": "faults", "protect_linear_cases": checked,
-          "reduced_engine_tokens_equal": True})
+          "pallas_cases": n_pallas, "reduced_engine_tokens_equal": True,
+          "reduced_pallas_engine_equals_cpu": True})
+
+
+def _totals(rows, weight):
+    """Sums of the per-shape rows' times, each row weighted by
+    ``weight(row)`` launches; the bound's side is the one that holds most of
+    the summed bound."""
+    def total(key):
+        return sum(r[key] * weight(r) for r in rows)
+    t_bytes = sum(weight(r) * r["bound_ms"] for r in rows
+                  if r["bound_by"] == "bytes")
+    return dict(plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                bound_by="bytes" if t_bytes >= total("bound_ms") / 2
+                else "operations",
+                library_ms=(None if rows[0]["library_ms"] is None
+                            else total("library_ms")),
+                kernel_phase_ms=total("kernel_ms"))
+
+
+def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
+    """One entry for each of the port's four kernels."""
+    src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    rep = "src/repro/kernels/{0}/kernel.py:{1}"
+    common = dict(route="cuda", device=name, nvidia_smi=smi)
+    gen = (f"one generation (B={B}, prompt {PROMPT}, {NEW} new): ms from "
+           "CUDA events around each launch of the path's run; plain_ms, "
+           "bound_ms, library_ms and kernel_phase_ms from the kernel "
+           "phase's per-shape times x launches")
+    rows, err, launches, ms = fused
+    out = [dict(name="fused_decode", source=src.format("fused_decode"),
+                replaces=rep.format("fused_decode", 189), launches=launches,
+                max_abs_err=err, ms=ms,
+                **_totals(rows, lambda r: r["launches_per_generation"]),
+                per=gen + ", fused backend", **common)]
+    launches, ms = pallas
+    out.append(dict(
+        name="protected_mm", source=src.format("protected_mm"),
+        replaces=rep.format("protected_mm", 84), launches=launches,
+        max_abs_err=dla_err["protected_mm"], ms=ms,
+        **_totals(dla["protected_mm"],
+                  lambda r: r["launches_per_generation"]),
+        library="torch._int_mm, the GEMM part",
+        per=gen + ", pallas backend", **common))
+    for kernel, line in (("qmatmul", 55), ("fault_inject", 50)):
+        launches, ms = entry[kernel]
+        decode = [r for r in dla[kernel] if r["shape"][0] == B]
+        tot = _totals(decode, lambda r: 1)
+        tot["bound_ms"], tot["bound_by"] = entry_bound[kernel]
+        out.append(dict(
+            name=kernel, source=src.format(kernel),
+            replaces=rep.format(kernel, line), launches=launches,
+            launches_per_generation=0, max_abs_err=dla_err[kernel], ms=ms,
+            **tot, library=decode[0]["library"],
+            per=("its entry point's run (quant_linear / inject at the 4 "
+                 f"decode shapes, M={B}; no serving path launches it): ms "
+                 "from CUDA events around each launch, bound_ms from that "
+                 "run's inputs, plain_ms, library_ms and kernel_phase_ms "
+                 "from the kernel phase's times at those shapes"),
+            **common))
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -456,30 +949,16 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     rows, max_err = phase_kernels(torch)
-    launches, kernel_ms = phase_engine(torch)
+    dla, dla_err = phase_dla_kernels(torch)
+    entry, entry_bound = phase_entry_points(torch)
+    m = full_model(torch)
+    launches, kernel_ms = phase_engine(torch, m)
+    pallas = phase_pallas_engine(torch, m)
+    del m
+    torch.cuda.empty_cache()
     phase_faults(torch)
-
-    def total(key):
-        return sum(r[key] * r["launches_per_generation"] for r in rows)
-    t_bytes = sum(r["launches_per_generation"] * r["bound_ms"]
-                  for r in rows if r["bound_by"] == "bytes")
-    emit({"kernels": [{
-        "name": "fused_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/fused_decode/csrc/fused_decode.cu",
-        "replaces": "src/repro/kernels/fused_decode/kernel.py:189",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if t_bytes >= total("bound_ms") / 2
-        else "operations",
-        "library_ms": total("library_ms"),
-        "kernel_phase_ms": total("kernel_ms"),
-        "per": f"one generation: {launches} launches (B={B}, prompt "
-               f"{PROMPT}, {NEW} new); ms from CUDA events around each "
-               "launch of the main path's run; plain_ms, library_ms and "
-               "kernel_phase_ms from the kernel phase's per-shape times "
-               "x launches",
-        "device": name, "nvidia_smi": smi}]})
+    emit(kernels_line(name, smi, (rows, max_err, launches, kernel_ms), dla,
+                      dla_err, pallas, entry, entry_bound))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -99,6 +99,15 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
 
 
+def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
+    """The 32-bit patterns of uint32 ``words`` (int64 in ``[0, 2**32)``) as
+    int32: words of ``2**31`` and above become negative.  What a CUDA kernel
+    reads as ``uint32``.  (Subtracting ``2**32`` first: a plain cast of an
+    int64 above the int32 range is not guaranteed to wrap.)"""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``: the top 23 bits of each
     word as a mantissa under exponent 0, minus 1."""

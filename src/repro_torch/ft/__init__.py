@@ -7,6 +7,9 @@ Counterpart of ``repro.ft``:
     policy = ft.get_policy("cl", ber=1e-3)
     y = ft.protect_linear(key, x, w, policy, important=m)            # reference
     y = ft.protect_linear(key, x, w, policy, important=m, backend="fused")
+    t = ft.calibrate_t(x, w)                     # deployment state
+    y = ft.protect_linear(key, x, w, policy, important=m, backend="pallas",
+                          t=t)
 """
 from repro_torch.ft.policy import (AlgorithmLayer, ArchLayer,  # noqa: F401
                                    CircuitLayer, ProtectionPolicy)
@@ -15,4 +18,5 @@ from repro_torch.ft.registry import get_policy, register_policy  # noqa: F401
 # isort: split
 from repro_torch.ft.compat import as_policy  # noqa: F401
 # isort: split
-from repro_torch.ft.api import BACKENDS, protect_linear  # noqa: F401
+from repro_torch.ft.api import (BACKENDS, calibrate_t,  # noqa: F401
+                                protect_linear)

@@ -1,6 +1,6 @@
 """``protect_linear``: the single fault-tolerant linear entry point.
 
-Counterpart of ``repro.ft.api``.  Two backends compute the same FlexHyCA
+Counterpart of ``repro.ft.api``.  Three backends compute the same FlexHyCA
 semantics:
 
   * ``backend="reference"``: the functional model (``_protect_reference``),
@@ -9,10 +9,19 @@ semantics:
     fused_decode``): the same key schedule and fault draws, packed into int32
     flip words and consumed by one hand-written CUDA kernel on the GPU.  It
     equals ``reference`` bitwise for every registry policy, global or (M, 2)
-    per-row keys, weight faults included, ``dyn`` overrides supported.
+    per-row keys, weight faults included, ``dyn`` overrides supported;
+  * ``backend="pallas"``: the protected-matmul kernel (``repro_torch.kernels.
+    protected_mm``), one hand-written CUDA kernel on the GPU: int8 GEMM,
+    24-bit saturation, a static truncation LSB ``t`` (per-layer deployment
+    state, calibrated from the inputs when not given) and selective bit
+    protection on two uint32 plane streams of its own
+    (``fault_inject.ops.random_planes``).  It models ECC-protected weight
+    SRAM, so ``policy.weight_faults`` does not apply; it takes one key and no
+    ``dyn``.  Its draws differ from the other two backends', so it equals
+    them only at BER 0; it equals the reference package's pallas backend
+    bitwise.
 
-The reference's third backend, ``"pallas"`` (the ``protected_mm`` kernel with
-its own random planes), is not ported yet; nor is ``protect_linear_ste``.
+``protect_linear_ste`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,14 +31,22 @@ from repro_torch.core import faults, prng
 from repro_torch.core import quantization as Q
 from repro_torch.ft.policy import ProtectionPolicy
 from repro_torch.kernels.fused_decode import ops as fused_ops
+from repro_torch.kernels.protected_mm import ops as pm_ops
+from repro_torch.kernels.protected_mm.kernel import protected_mm
 
-BACKENDS = ("reference", "fused")
+BACKENDS = ("reference", "fused", "pallas")
+
+
+def calibrate_t(x, w, q_scale: int = 0) -> int:
+    """Pick a layer's truncation LSB from calibration data: deployment state
+    for the pallas backend, whose kernel takes ``t`` statically."""
+    return pm_ops.calibrate_t(x, w, q_scale=q_scale)
 
 
 def protect_linear(key, x: torch.Tensor, w: torch.Tensor,
                    policy: ProtectionPolicy, important=None, *,
                    layer_protected: bool = True, backend: str = "reference",
-                   dyn=None) -> torch.Tensor:
+                   t: int | None = None, dyn=None) -> torch.Tensor:
     """Fault-tolerant linear: float in/out, faulty quantized DLA inside.
 
     Args:
@@ -41,7 +58,9 @@ def protect_linear(key, x: torch.Tensor, w: torch.Tensor,
         by recompute policies.
       layer_protected: for whole-layer-TMR policies, whether this layer is in
         the protected set.
-      backend: "reference" | "fused".
+      backend: "reference" | "fused" | "pallas".
+      t: the pallas backend's truncation LSB; calibrated from ``x`` and
+        ``w`` (a host sync) when None.  The other backends ignore it.
       dyn: optional overrides of ``ib_th`` / ``nb_th`` / ``q_scale`` (ints
         or int tensors on the device).
     Returns (..., N) float32.
@@ -53,10 +72,17 @@ def protect_linear(key, x: torch.Tensor, w: torch.Tensor,
         return fused_ops.fused_protect_linear(
             key, x, w, policy, important, layer_protected=layer_protected,
             dyn=dyn)
+    if getattr(key, "ndim", 1) == 2:
+        raise ValueError("per-row key batches are only supported by "
+                         "backend='reference' or backend='fused'")
+    if dyn:
+        raise ValueError("dyn knob overrides are only supported by "
+                         "backend='reference' or backend='fused' (the "
+                         "pallas kernel takes its protection knobs "
+                         "statically)")
     if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the protected_mm kernel) is not ported yet: "
-            "ROADMAP.md, queue B, kernels/protected_mm")
+        return _protect_pallas(key, x, w, policy, important,
+                               layer_protected=layer_protected, t=t)
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{BACKENDS}")
 
@@ -113,4 +139,43 @@ def _protect_reference(key, x, w, policy: ProtectionPolicy, important,
         yq_f = torch.where(important.reshape(1, -1), yq_d, yq_f)
 
     y = fused_ops.rescale(yq_f, sx, sw, t)
+    return y.reshape(*orig_shape[:-1], n)
+
+
+def _protect_pallas(key, x, w, policy: ProtectionPolicy, important, *,
+                    layer_protected: bool, t: int | None, block: int = 128):
+    """The pallas backend: quantize, draw both plane streams over the output
+    padded to ``block`` multiples (the reference pads every operand to its
+    kernel's tiles and draws there: the plane shape is part of the fault
+    stream), hand the kernel their (M, N) corner, rescale.  The kernel needs
+    no padding of its own."""
+    dev = x.device
+    key = prng.as_key(key, dev)
+    orig_shape = x.shape
+    x2 = x.reshape(-1, orig_shape[-1]).to(torch.float32)
+    w = w.to(torch.float32)
+    m, n = x2.shape[0], w.shape[1]
+
+    xq, sx = Q.quantize(x2)
+    wq, sw = Q.quantize(w)
+    if t is None:
+        acc = Q.saturate(Q.int_matmul(xq, wq))
+        t = int(Q.choose_trunc_lsb(acc.abs().amax(),
+                                   q_scale=policy.algorithm.q_scale))
+
+    circ = policy.circuit
+    if policy.arch.whole_layer_tmr:
+        ib = nb = Q.OUT_BITS if layer_protected else 0
+    else:
+        ib, nb = circ.ib_th, circ.nb_th
+    if important is None or not policy.uses_importance:
+        imp = torch.zeros((n,), dtype=torch.int32, device=dev)
+    else:
+        imp = important.to(torch.int32)
+
+    padded = (-(-m // block) * block, -(-n // block) * block)
+    rnd_o, rnd_i = pm_ops.plane_streams(key, padded, m, n)
+    yq = protected_mm(xq.to(torch.int8), wq.to(torch.int8), rnd_o, rnd_i, imp,
+                      t=t, ber=float(policy.ber), ib=ib, nb=nb)
+    y = yq.to(torch.float32) * (sx * sw * (2.0 ** t))
     return y.reshape(*orig_shape[:-1], n)

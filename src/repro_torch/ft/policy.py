@@ -68,6 +68,11 @@ class ProtectionPolicy:
     weight_faults: bool = True
     seed: int = 0
 
+    @property
+    def uses_importance(self) -> bool:
+        """Whether this policy consumes Algorithm-1 importance masks."""
+        return self.arch.recompute
+
     # ------------------------------------------------------------- tuning --
     def tune(self, **overrides) -> "ProtectionPolicy":
         """Return a copy with fields replaced, routing each name to the

@@ -20,7 +20,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import quantization as Q
-from repro_torch.kernels.build import build_library
+from repro_torch.kernels.build import (build_library, check_operand, launch,
+                                      load)
 from repro_torch.kernels.fused_decode.ref import fused_ref
 
 DPPU_SOURCES = ("none", "reuse", "w", "wcl")
@@ -35,29 +36,11 @@ def build():
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_decode_launch.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
-    lib.fused_decode_launch.restype = i32
-    lib.fused_decode_error_string.argtypes = [i32]
-    lib.fused_decode_error_string.restype = ctypes.c_char_p
-    return lib
+    return load("fused_decode", SOURCES, [ptr] * 13 + [i32] * 5)
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"fused_decode: {name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"fused_decode: {name} is on {t.device}, "
-                         f"xq on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_decode: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_decode: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_decode: {name} must be contiguous")
+_check = functools.partial(check_operand, "fused_decode")
 
 
 def _ptr(t):
@@ -133,17 +116,11 @@ def fused_decode(xq, wq, oflips, q_scale, *, wq_clean=None, wflips=None,
         else None
     rowmax = torch.empty((M,), dtype=torch.int32, device=dev)
     w2 = wq_clean if dppu_src == "wcl" else (wq if separate else None)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_decode_launch(
-            _ptr(xq), _ptr(wq), _ptr(w2), _ptr(wflips), _ptr(oflips),
-            _ptr(dflips), _ptr(imp), _ptr(q_scale), _ptr(acc), _ptr(acc_d),
-            _ptr(rowmax), _ptr(y), _ptr(t), M, N, K, int(per_row),
-            2 if separate else int(dppu), stream)
-    if err != 0:
-        raise RuntimeError("fused_decode launch failed: "
-                           + lib.fused_decode_error_string(err).decode())
+    launch(_lib(), "fused_decode", dev,
+           _ptr(xq), _ptr(wq), _ptr(w2), _ptr(wflips), _ptr(oflips),
+           _ptr(dflips), _ptr(imp), _ptr(q_scale), _ptr(acc), _ptr(acc_d),
+           _ptr(rowmax), _ptr(y), _ptr(t), M, N, K, int(per_row),
+           2 if separate else int(dppu))
     fused_decode.launches += 1
     return y, t
 

@@ -76,25 +76,42 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # ------------------------------------------------------------ ft routing ---
 class FTCtx:
     """Per-forward fault-tolerance context: a protection policy (or registry
-    name), per-site importance masks and per-site keys.
+    name), per-site importance masks, per-site keys and, for the pallas
+    backend, per-site truncation LSBs.
 
     ``key`` is one key ``(2,)`` (one fault stream for the whole forward) or a
     ``(B, 2)`` batch, one independent stream per batch row.  Site ``name``
     draws from ``fold_in(key, crc32(name))``: site names are part of the
-    fault-key contract.  ``backend`` is "reference" or "fused".  (The
-    reference's ``protected_layers``, ``dyn``, ``t`` and ``ste`` fields come
-    with the DSE and training slices.)
+    fault-key contract.  ``backend`` is "reference", "fused" or "pallas".
+    ``t`` is one int for every site or a ``{site: int}`` table, the pallas
+    backend's truncation LSBs: deployment state, so a pallas site without
+    one raises, as under the reference's jit (where its Engine runs every
+    step); only a direct ``protect_linear`` call calibrates.  (The
+    reference's ``protected_layers``, ``dyn`` and ``ste`` fields come with
+    the DSE and training slices.)
     """
 
-    def __init__(self, ft, key, masks=None, backend: str = "reference"):
+    def __init__(self, ft, key, masks=None, backend: str = "reference",
+                 t=None):
         from repro_torch.ft import as_policy
         self.ft = as_policy(ft)
         self.key = key
         self.masks = masks or {}
         self.backend = backend
+        self.t = t
 
     def site_key(self, name: str) -> torch.Tensor:
         return prng.fold_in(self.key, zlib.crc32(name.encode()))
+
+    def site_t(self, name: str):
+        t = self.t.get(name) if isinstance(self.t, dict) else self.t
+        if t is None and self.backend == "pallas":
+            raise ValueError(
+                f"backend='pallas' site {name!r} has no pre-calibrated "
+                "truncation LSB: pass FTCtx(t=...) or Engine(..., ft_t=...) "
+                "(one int or a {site: int} table; see "
+                "repro_torch.ft.calibrate_t) or use another backend")
+        return t
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
@@ -120,7 +137,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
             sk, x.to(torch.float32).reshape(-1, w.shape[0]), w2, ftc.ft,
             important=None if imp is None else torch.as_tensor(
                 imp, device=x.device),
-            backend=ftc.backend)
+            backend=ftc.backend, t=ftc.site_t(name))
         y = y.reshape(*x.shape[:-1], *w.shape[1:]).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)

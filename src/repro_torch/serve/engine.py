@@ -3,8 +3,10 @@
 Counterpart of ``repro.serve.engine`` with ``loop="python"``: one prefill
 and one decode step per new token, so a generation costs ``1 + n_new`` host
 round trips.  Pass a protection policy (object or registry name) and every
-projection of prefill and decode computes through the faulty-DLA path,
-``ft_backend="fused"`` on the hand-written kernel.
+projection of prefill and decode computes through the faulty-DLA path:
+``ft_backend="fused"`` on the hand-written ``fused_decode`` kernel,
+``ft_backend="pallas"`` on the hand-written ``protected_mm`` kernel with
+calibrated truncation LSBs ``ft_t``.
 
 The key schedule is the reference's, so the port draws the same faults:
 ``_call_key`` folds the call index into the config seed (unless a key or
@@ -45,11 +47,14 @@ class ServeStats:
 
 class Engine:
     def __init__(self, model, params, cfg: ServeConfig | None = None,
-                 policy=None, ft_backend: str = "reference",
+                 policy=None, ft_backend: str = "reference", ft_t=None,
                  loop: str | None = None):
         """``policy``: a protection policy (or registry name) applied to
-        every projection; ``ft_backend``: "reference" or "fused".  Runs on
-        the device the parameters are on."""
+        every projection; ``ft_backend``: "reference", "fused" or "pallas".
+        For "pallas", ``ft_t`` carries the calibrated truncation LSB(s): one
+        int or a ``{site: int}`` table (``repro_torch.ft.calibrate_t``); a
+        site without one raises, the Engine never calibrates behind the
+        caller's back.  Runs on the device the parameters are on."""
         from repro_torch.ft import as_policy
         self.model, self.params = model, params
         self.cfg = cfg or ServeConfig()
@@ -66,6 +71,7 @@ class Engine:
                 "ported: the engine serves temperature 0 (ROADMAP.md)")
         self.policy = as_policy(policy)
         self.ft_backend = ft_backend
+        self.ft_t = ft_t
         self.device = params["embed"].device
         self.stats = ServeStats()
         self._n_calls = 0
@@ -74,7 +80,8 @@ class Engine:
         if self.policy is None:
             return None
         from repro_torch.models.common import FTCtx
-        return FTCtx(self.policy, ftkey, backend=self.ft_backend)
+        return FTCtx(self.policy, ftkey, backend=self.ft_backend,
+                     t=self.ft_t)
 
     @staticmethod
     def _sample(logits):

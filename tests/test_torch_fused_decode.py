@@ -271,9 +271,3 @@ def test_protect_linear_matches_jax(monkeypatch, policy_name):
             ulp = _ulp_distance(jitted, got["reference"][0]).max()
             assert ulp <= MAX_ULP, (msg, ulp)
 
-
-def test_pallas_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tft.protect_linear(prng.PRNGKey(0), torch.zeros(2, 3),
-                           torch.zeros(3, 4), tft.get_policy("base"),
-                           backend="pallas")

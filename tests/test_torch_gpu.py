@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+fused_decode, and the DLA kernels qmatmul, protected_mm and fault_inject.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports neither jax nor the JAX package, so it runs where only the port is
@@ -15,8 +16,14 @@ import torch
 from repro_torch import ft
 from repro_torch.core import prng
 from repro_torch.core import quantization as Q
+from repro_torch.kernels.fault_inject import kernel as fi_kernel
+from repro_torch.kernels.fault_inject.ref import inject_ref
 from repro_torch.kernels.fused_decode import kernel
 from repro_torch.kernels.fused_decode.ref import fused_ref
+from repro_torch.kernels.protected_mm import kernel as pm_kernel
+from repro_torch.kernels.protected_mm.ref import protected_mm_ref
+from repro_torch.kernels.qmatmul import kernel as qm_kernel
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
 # one intra-op thread: the suite runs in parallel worker processes, and
 # torch's spinning OpenMP pool would take their cores
@@ -149,3 +156,134 @@ def test_fused_backend_equals_reference_and_cpu(cuda, policy_name):
             got = ft.protect_linear(key.to(cuda), x.to(cuda), w.to(cuda),
                                     pol, imp.to(cuda), backend=backend)
             assert torch.equal(got.cpu(), want), backend
+
+
+# ------------------------------------------- qmatmul, protected_mm, inject --
+DLA_SHAPES = ((4, 2560, 640), (37, 1000, 130), (5, 200, 130))
+# (t, ber, ib, nb): t at 0, 1 and 16; BER 0, 1e-2 and 1.0; ib and nb at 0
+# and 8 and between
+PM_EDGES = ((0, 0.0, 2, 1), (1, 1e-2, 0, 0), (16, 1e-2, 8, 8),
+            (3, 1.0, 8, 0), (16, 1.0, 0, 8), (5, 1e-2, 2, 1))
+
+
+def _dla_operands(m, k, n, dev, seed, edges=False):
+    """int8 operands (with edges: rows and columns that saturate the 24-bit
+    accumulator at both ends), uint32 planes as int32 bit patterns with low
+    words mixed in (BER 1e-2 flips) and all-ones words in row 0 (which BER
+    1.0 leaves), and a mixed important mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    if edges:
+        xq[0], xq[1], xq[2] = 127, -128, 0
+        wq[:, 0], wq[:, 1] = 127, -128
+
+    def planes():
+        w = torch.randint(0, 1 << 32, (8, m, n), generator=g, device=dev,
+                          dtype=torch.int64)
+        low = torch.rand((8, m, n), generator=g, device=dev) < 0.05
+        w = torch.where(low, w >> 8, w)
+        w[:, 0] = (1 << 32) - 1
+        return prng.as_int32_bits(w)
+    imp = (torch.rand(n, generator=g, device=dev) < 0.4).to(torch.int32)
+    return xq, wq, planes(), planes(), imp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", (False, True))
+@pytest.mark.parametrize("mkn", DLA_SHAPES)
+def test_qmatmul_matches_plain(cuda, mkn, edges):
+    xq, wq, *_ = _dla_operands(*mkn, cuda, seed=mkn[0], edges=edges)
+    if edges and mkn[1] > 516:          # 127 * 127 * K > 2**23
+        acc = Q.int_matmul(xq.to(torch.int32), wq.to(torch.int32))
+        assert int(acc.max()) >= 1 << 23 and int(acc.min()) < -(1 << 23)
+    for t in (0, 1, 16):
+        before = qm_kernel.qmatmul.launches
+        y = qm_kernel.qmatmul(xq, wq, t)
+        torch.cuda.synchronize()
+        assert qm_kernel.qmatmul.launches == before + 1
+        assert torch.equal(y, qmatmul_ref(xq, wq, t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", (False, True))
+@pytest.mark.parametrize("mkn", DLA_SHAPES)
+def test_protected_mm_matches_plain(cuda, mkn, edges):
+    xq, wq, ro, ri, imp = _dla_operands(*mkn, cuda, seed=mkn[0] + 1,
+                                        edges=edges)
+    for t, ber, ib, nb in PM_EDGES:
+        kw = dict(t=t, ber=ber, ib=ib, nb=nb)
+        before = pm_kernel.protected_mm.launches
+        y = pm_kernel.protected_mm(xq, wq, ro, ri, imp, **kw)
+        torch.cuda.synchronize()
+        assert pm_kernel.protected_mm.launches == before + 1
+        assert torch.equal(y, protected_mm_ref(xq, wq, ro, ri, imp, **kw)), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", DLA_SHAPES)
+def test_fault_inject_matches_plain(cuda, mkn):
+    m, _, n = mkn
+    _, _, rnd, _, _ = _dla_operands(*mkn, cuda, seed=mkn[0] + 2)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(-128, 128, (m, n), generator=g, device=cuda,
+                      dtype=torch.int32)
+    prot = (torch.arange(n, device=cuda) % 9).to(torch.int32)
+    for ber in (0.0, 1e-2, 1.0):
+        before = fi_kernel.fault_inject.launches
+        y = fi_kernel.fault_inject(x, rnd, prot, ber)
+        torch.cuda.synchronize()
+        assert fi_kernel.fault_inject.launches == before + 1
+        assert torch.equal(y, inject_ref(x, rnd, prot, ber)), ber
+        if ber == 0.0:
+            assert torch.equal(y, x)
+
+
+@pytest.mark.gpu
+def test_dla_kernels_reject_bad_operands(cuda):
+    xq, wq, ro, ri, imp = _dla_operands(4, 64, 32, cuda, seed=0)
+    x32 = xq.to(torch.int32)[:, :32].contiguous()
+    pm = dict(t=3, ber=1e-2, ib=2, nb=1)
+    with pytest.raises(TypeError):
+        qm_kernel.qmatmul(xq.to(torch.int32), wq, 3)
+    with pytest.raises(ValueError):
+        qm_kernel.qmatmul(xq, wq.cpu(), 3)
+    with pytest.raises(ValueError):
+        qm_kernel.qmatmul(xq, wq.t(), 3)
+    with pytest.raises(ValueError):
+        qm_kernel.qmatmul(xq, wq, 31)
+    with pytest.raises(TypeError):
+        pm_kernel.protected_mm(xq, wq, ro.to(torch.int64), ri, imp, **pm)
+    with pytest.raises(ValueError):
+        pm_kernel.protected_mm(xq, wq, ro[:, :2], ri, imp, **pm)
+    with pytest.raises(ValueError):
+        pm_kernel.protected_mm(xq, wq, ro, ri, imp.cpu(), **pm)
+    with pytest.raises(TypeError):
+        fi_kernel.fault_inject(x32.to(torch.int8), ro, imp, 1e-2)
+    with pytest.raises(ValueError):
+        fi_kernel.fault_inject(x32, ro[:, :, :16], imp, 1e-2)
+    with pytest.raises(ValueError):
+        fi_kernel.fault_inject(x32, ro.cpu(), imp, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy_name", POLICIES)
+def test_pallas_backend_equals_cpu(cuda, policy_name):
+    """t given and calibrated, layer_protected both ways, an important
+    mask; the planes are drawn over the padded (128, 128) output."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((6, 96)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((96, 72)).astype(np.float32))
+    imp = torch.from_numpy(rng.random(72) < 0.3)
+    pol = ft.get_policy(policy_name, ber=1e-2)
+    key = prng.PRNGKey(8)
+    for t in (5, None):
+        for lp in (True, False):
+            want = ft.protect_linear(key, x, w, pol, imp, backend="pallas",
+                                     t=t, layer_protected=lp)
+            got = ft.protect_linear(key.to(cuda), x.to(cuda), w.to(cuda),
+                                    pol, imp.to(cuda), backend="pallas", t=t,
+                                    layer_protected=lp)
+            assert torch.equal(got.cpu(), want), (t, lp)

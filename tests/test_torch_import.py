@@ -13,7 +13,10 @@ PORT = REPO / "src" / "repro_torch"
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, repro_torch, repro_torch.ft, repro_torch.serve, "
             "repro_torch.convert, repro_torch.launch.serve, "
-            "repro_torch.kernels.fused_decode.kernel; "
+            "repro_torch.kernels.fused_decode.kernel, "
+            "repro_torch.kernels.qmatmul.ops, "
+            "repro_torch.kernels.fault_inject.ops, "
+            "repro_torch.kernels.protected_mm.ops; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
