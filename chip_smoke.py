@@ -9,17 +9,24 @@ its last line:
 
   1. device: the card's name and power limit;
   2. build: the port's four CUDA kernels from the checkout's sources
-     (build/), one nvcc each, all started together;
+     (build/), one nvcc each, all started together; ptxas's register and
+     spill lines; fused_decode's and protected_mm's libraries must show no
+     spill, and their SASS (cuobjdump) int8 tensor-core instructions (IMMA)
+     and cp.async copies (LDGSTS);
   3. kernels: fused_decode against its plain version, bitwise, in every mode
-     at the main path's shapes, on random operands and on operands that
-     drive the epilogue's clamps (24-bit saturation, t's upper clamp of 16,
-     q_scale above the natural t); timed beside its bound, the plain version
-     and one PyTorch call (torch._int_mm on the same int8 operands);
+     at the main path's shapes and at shapes that cross the split-K and
+     16-byte-copy boundaries (M 1/16/17, K 31/200/2561, N 130/648), and with
+     operands 1 byte off 16-byte alignment, on random operands and on
+     operands that drive the epilogue's clamps (24-bit saturation, t's upper
+     clamp of 16, q_scale above the natural t); timed beside its bound, the
+     plain version and one PyTorch call (torch._int_mm on the same int8
+     operands);
   4. dla kernels: qmatmul, protected_mm and fault_inject against their plain
-     versions, bitwise, at the main path's shapes and a ragged one, on
-     random and saturating operands, t 0/1/16, BER 0/1e-2/1.0, protection
-     counts 0 to 8, a mixed important mask; timed like fused_decode (no
-     PyTorch call computes fault_inject's function);
+     versions, bitwise, at the main path's shapes, at the same boundary
+     shapes and misaligned operands, and at two ragged ones, on random and
+     saturating operands, t 0/1/16, BER 0/1e-2/1.0, protection counts 0 to
+     8, a mixed important mask; timed like fused_decode (no PyTorch call
+     computes fault_inject's function);
   5. entry points: quant_linear and inject, the kernel-level entry points of
      qmatmul and fault_inject, at the decode shapes, equal to the CPU;
   6. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed),
@@ -36,7 +43,10 @@ its last line:
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
      engine on both backends equals the CPU's;
-  9. a ``kernels`` JSON line, then the last line
+  9. a ``kernels`` JSON line (per kernel: its launches and device time on
+     its path, and the kernel phase's sums of kernel, bound, plain and
+     ``_int_mm`` times, with ``bound_share`` = bound / kernel time), then the
+     last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -69,6 +79,15 @@ PM_EDGES = ((0, 0.0, 2, 1), (1, 1e-2, 0, 0), (16, 1e-2, 8, 8),
             (3, 1.0, 8, 0), (16, 1.0, 0, 8), (5, 1e-2, 2, 1))
 # the main path's mode (crt3 at BER 1e-4, no important mask), timed
 MAIN_PM = dict(t=12, ber=1e-4, ib=3, nb=3)
+# shapes that cross the GEMM core's boundaries: M at and past the decode
+# tile (16), K under one 64-step, ragged, and split with a ragged last
+# chunk, N ragged against 64- and 128-column tiles and against 16-byte rows
+EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
+                    for n in (130, 648))
+# (M, K, N) at which xq and wq also run 1 byte off 16-byte alignment
+MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
+# the two kernels on the redesigned GEMM core
+CORE_KERNELS = ("fused_decode", "protected_mm")
 
 
 def emit(obj):
@@ -165,12 +184,33 @@ def phase_build():
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(build, KERNELS))
     for name, path, report, secs in built:
+        spills = 0
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas [{name}]:", line.strip())
-        emit({"phase": "build", "kernel": name, "library":
-              str(path.relative_to(ROOT)), "build_s": round(secs, 3)})
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill " \
+                    "loads" not in line:
+                spills += 1
+        row = {"phase": "build", "kernel": name, "library":
+               str(path.relative_to(ROOT)), "build_s": round(secs, 3)}
+        if name in CORE_KERNELS:
+            row.update(sass_counts(path), spilling_kernels=spills)
+            if spills or not row["IMMA"] or not row["LDGSTS"]:
+                raise AssertionError(f"{name}: {row}: the GEMM core must "
+                                     "issue IMMA and LDGSTS and not spill")
+        emit(row)
     emit({"phase": "build", "all_s": round(time.perf_counter() - t0, 3)})
+
+
+def sass_counts(path):
+    """IMMA (int8 mma) and LDGSTS (cp.async) instructions in a library's
+    SASS, by cuobjdump."""
+    from repro_torch.kernels.build import nvcc
+    cuobjdump = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: sass.count(op) for op in ("IMMA", "LDGSTS")}
 
 
 def _operands(torch, g, dev, M, K, N):
@@ -195,10 +235,21 @@ def _edges(ops):
     127*128*K > 2**23 (the 24-bit saturation, and t's upper clamp of 16);
     a zero row and a row of -1/0/1 have a natural t below q_scale."""
     xq, wq = ops["xq"], ops["wq"]
-    xq[0], xq[1], xq[2] = 127, -128, 0
-    xq[3] = xq[3] % 3 - 1
+    for r, v in zip(range(xq.shape[0]), (127, -128, 0)):
+        xq[r] = v
+    if xq.shape[0] > 3:
+        xq[3] = xq[3] % 3 - 1
     wq[:, 0], wq[:, 1], wq[:, 2] = 127, -128, 0
     return ops
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts 1 byte off a 16-byte
+    boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _check_modes(torch, g, ops, q_scales):
@@ -248,11 +299,25 @@ def phase_kernels(torch):
     """fused_decode against ref.fused_ref, bitwise, every mode, main-path
     shapes, random and clamp-driving operands; per-launch timings of the
     main path's mode (global t, no DPPU)."""
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.fused_decode import kernel
     from repro_torch.kernels.fused_decode.ref import fused_ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     max_err, rows = 0, []
+    for M, K, N in EDGE_SHAPES + MISALIGNED_SHAPES:
+        for edges in (False, True):
+            ops = _operands(torch, g, dev, M, K, N)
+            if (M, K, N) in MISALIGNED_SHAPES:
+                ops["xq"], ops["wq"] = (_misaligned(torch, ops[k])
+                                        for k in ("xq", "wq"))
+            max_err = max(max_err, _check_modes(
+                torch, g, _edges(ops) if edges else ops,
+                (0, 12, 20) if edges else (3,)))
+    emit({"phase": "kernel", "kernel": "fused_decode",
+          "boundary_shapes": [list(s) for s in EDGE_SHAPES],
+          "misaligned_shapes": [list(s) for s in MISALIGNED_SHAPES],
+          "max_abs_err": max_err})
     for (M, K, N), count in launches_per_generation().items():
         ops = _operands(torch, g, dev, M, K, N)
         max_err = max(max_err, _check_modes(torch, g, ops, (3,)))
@@ -267,10 +332,12 @@ def phase_kernels(torch):
         b_ms, b_by = bound(M, K, N, (False, "none", False))
         row = dict(shape=[M, K, N], mode="global t, no DPPU",
                    launches_per_generation=count,
+                   plan=list(kernel.gemm_plan(M, K, N, sm_count(dev))),
                    kernel_ms=cuda_ms(torch, call, 20),
                    bound_ms=b_ms, bound_by=b_by,
                    plain_ms=cuda_ms(torch, plain, 5),
                    library_ms=cuda_ms(torch, lib, 20))
+        row["bound_share"] = b_ms / row["kernel_ms"]
         rows.append(row)
         emit({"phase": "kernel", "kernel": "fused_decode", **row})
         max_err = max(max_err, _check_modes(torch, g, _edges(ops),
@@ -292,7 +359,8 @@ def _dla_operands(torch, g, dev, M, K, N, edges=False):
     wq = torch.randint(-128, 128, (K, N), generator=g, device=dev,
                        dtype=torch.int8)
     if edges:
-        xq[0], xq[1 % M], xq[2 % M] = 127, -128, 0
+        for r, v in zip(range(M), (127, -128, 0)):
+            xq[r] = v
         wq[:, 0], wq[:, 1] = 127, -128
 
     def planes():
@@ -354,8 +422,10 @@ def phase_dla_kernels(torch):
     two ragged ones; per-launch timings at the main path's shapes, in the
     main path's mode for protected_mm (crt3: ib = nb = 3, no important
     channel, BER 1e-4)."""
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.fault_inject.kernel import fault_inject
     from repro_torch.kernels.fault_inject.ref import inject_ref
+    from repro_torch.kernels.plan import gemm_plan
     from repro_torch.kernels.protected_mm.kernel import protected_mm
     from repro_torch.kernels.protected_mm.ref import protected_mm_ref
     from repro_torch.kernels.qmatmul.kernel import qmatmul
@@ -368,10 +438,14 @@ def phase_dla_kernels(torch):
     def merge(err):
         for k, e in err.items():
             max_err[k] = max(max_err[k], e)
-    for M, K, N in ((5, 200, 130), (37, 1000, 130)):
+    for M, K, N in ((5, 200, 130), (37, 1000, 130)) + EDGE_SHAPES \
+            + MISALIGNED_SHAPES:
         for edges in (False, True):
-            merge(_check_dla(torch, _dla_operands(torch, g, dev, M, K, N,
-                                                  edges)))
+            ops = _dla_operands(torch, g, dev, M, K, N, edges)
+            if (M, K, N) in MISALIGNED_SHAPES:
+                ops["xq"], ops["wq"] = (_misaligned(torch, ops[k])
+                                        for k in ("xq", "wq"))
+            merge(_check_dla(torch, ops))
     for (M, K, N), count in launches_per_generation().items():
         ops = _dla_operands(torch, g, dev, M, K, N)
         merge(_check_dla(torch, ops))
@@ -403,6 +477,7 @@ def phase_dla_kernels(torch):
         rows["protected_mm"].append(dict(
             shape=[M, K, N], mode="crt3: ib=nb=3, no important channel, "
             f"BER 1e-4, t={t}", launches_per_generation=count,
+            plan=list(gemm_plan(M, K, N, sm_count(dev))),
             kernel_ms=cuda_ms(torch, functools.partial(
                 protected_mm, *pm_args, **MAIN_PM), 20),
             bound_ms=b_ms, bound_by=b_by,
@@ -423,6 +498,8 @@ def phase_dla_kernels(torch):
                              5),
             library_ms=None, library="none computes this function"))
         for name in rows:
+            rows[name][-1]["bound_share"] = (rows[name][-1]["bound_ms"]
+                                             / rows[name][-1]["kernel_ms"])
             emit({"phase": "kernel", "kernel": name, **rows[name][-1]})
         del ops
     torch.cuda.synchronize()
@@ -891,7 +968,8 @@ def _totals(rows, weight):
                 else "operations",
                 library_ms=(None if rows[0]["library_ms"] is None
                             else total("library_ms")),
-                kernel_phase_ms=total("kernel_ms"))
+                kernel_phase_ms=total("kernel_ms"),
+                bound_share=total("bound_ms") / total("kernel_ms"))
 
 
 def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
@@ -902,7 +980,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
     gen = (f"one generation (B={B}, prompt {PROMPT}, {NEW} new): ms from "
            "CUDA events around each launch of the path's run; plain_ms, "
            "bound_ms, library_ms and kernel_phase_ms from the kernel "
-           "phase's per-shape times x launches")
+           "phase's per-shape times x launches; bound_share = bound_ms / "
+           "kernel_phase_ms")
     rows, err, launches, ms = fused
     out = [dict(name="fused_decode", source=src.format("fused_decode"),
                 replaces=rep.format("fused_decode", 189), launches=launches,
@@ -923,6 +1002,7 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
         decode = [r for r in dla[kernel] if r["shape"][0] == B]
         tot = _totals(decode, lambda r: 1)
         tot["bound_ms"], tot["bound_by"] = entry_bound[kernel]
+        tot["bound_share"] = tot["bound_ms"] / tot["kernel_phase_ms"]
         out.append(dict(
             name=kernel, source=src.format(kernel),
             replaces=rep.format(kernel, line), launches=launches,
@@ -932,7 +1012,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
                  f"decode shapes, M={B}; no serving path launches it): ms "
                  "from CUDA events around each launch, bound_ms from that "
                  "run's inputs, plain_ms, library_ms and kernel_phase_ms "
-                 "from the kernel phase's times at those shapes"),
+                 "from the kernel phase's times at those shapes; "
+                 "bound_share = bound_ms / kernel_phase_ms"),
             **common))
     return {"kernels": out}
 

@@ -12,12 +12,13 @@ Nothing is built at import time: the first launch builds.
 Each library exports ``<name>_launch`` (operand pointers, sizes, then the
 stream; returns a CUDA error code) and ``<name>_error_string``.  ``load``
 binds them, ``launch`` calls one on PyTorch's current stream and raises on
-an error, and ``check_operand`` is the wrappers' check of what a kernel
-takes.
+an error, ``check_operand`` is the wrappers' check of what a kernel takes, and
+``sm_count`` the card's SMs that a launch plan fills.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -92,6 +93,13 @@ def launch(lib, name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            + getattr(lib, f"{name}_error_string")(err)
                            .decode())
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (a launch plan's
+    target)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operand(kernel: str, name: str, t, dtype, shape, device) -> None:

@@ -7,6 +7,12 @@ It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface (``build()``, through ``repro_torch.kernels.build``) at
 first use, and loaded with ``ctypes``.
 
+The launch plan (block tile, K chunk, number of chunks) is
+``kernels/plan.py::gemm_plan``'s, for the device's SM count; the launcher
+takes it as arguments, so the CPU tests can hold the chunking it implies.
+One int32 scratch tensor carries the row maxima (zeroed by the launcher)
+and the accumulators.
+
 ``fused_decode`` takes the plain version (``ref.fused_ref``) only for tensors
 that lie on the CPU; for CUDA tensors it launches the kernel or raises.
 ``fused_decode.launches`` counts the kernel's launches (one per call).
@@ -21,8 +27,9 @@ import torch
 
 from repro_torch.core import quantization as Q
 from repro_torch.kernels.build import (build_library, check_operand, launch,
-                                      load)
+                                      load, sm_count)
 from repro_torch.kernels.fused_decode.ref import fused_ref
+from repro_torch.kernels.plan import gemm_plan
 
 DPPU_SOURCES = ("none", "reuse", "w", "wcl")
 SOURCES = (Path(__file__).with_name("csrc").joinpath("fused_decode.cu"),)
@@ -37,7 +44,7 @@ def build():
 @functools.cache
 def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return load("fused_decode", SOURCES, [ptr] * 13 + [i32] * 5)
+    return load("fused_decode", SOURCES, [ptr] * 11 + [i32] * 9)
 
 
 _check = functools.partial(check_operand, "fused_decode")
@@ -110,17 +117,17 @@ def fused_decode(xq, wq, oflips, q_scale, *, wq_clean=None, wflips=None,
 
     y = torch.empty((M, N), dtype=torch.int8, device=dev)
     t = torch.empty((M, 1), dtype=torch.int32, device=dev)
-    acc = torch.empty((M, N), dtype=torch.int32, device=dev)
     separate = dppu_src in ("w", "wcl")
-    acc_d = torch.empty((M, N), dtype=torch.int32, device=dev) if separate \
-        else None
-    rowmax = torch.empty((M,), dtype=torch.int32, device=dev)
+    plan = gemm_plan(M, K, N, sm_count(dev))
+    # rowmax[M], acc[M, N] (and the DPPU's acc[M, N])
+    scratch = torch.empty(M + (2 if separate else 1) * M * N,
+                          dtype=torch.int32, device=dev)
     w2 = wq_clean if dppu_src == "wcl" else (wq if separate else None)
     launch(_lib(), "fused_decode", dev,
            _ptr(xq), _ptr(wq), _ptr(w2), _ptr(wflips), _ptr(oflips),
-           _ptr(dflips), _ptr(imp), _ptr(q_scale), _ptr(acc), _ptr(acc_d),
-           _ptr(rowmax), _ptr(y), _ptr(t), M, N, K, int(per_row),
-           2 if separate else int(dppu))
+           _ptr(dflips), _ptr(imp), _ptr(q_scale), _ptr(scratch), _ptr(y),
+           _ptr(t), M, N, K, int(per_row), 2 if separate else int(dppu),
+           *plan)
     fused_decode.launches += 1
     return y, t
 

@@ -19,83 +19,150 @@
 // over as their 32-bit patterns and compared unsigned here.  thresh is
 // min(int(ber * 2^32), 2^32 - 1), computed on the host as the reference does.
 //
-// Design.  The TPU kernel carries the (128, 128) accumulator in VMEM across
-// a sequential K grid and runs both draws in the epilogue of the last K step.
-// Here each block owns an output tile over all of K (dla::gemm_tile, shared
-// with qmatmul) and runs the epilogue in the same launch, since t is static:
-// one launch per call.  Each output word reads only the stream its channel
-// selects, and of it only the planes of its unprotected bits (8 - nb or
-// 8 - ib), so the result is the same as computing both draws and selecting.
+// What bounds it.  Bytes at decode: the K*N bytes of w (17.7 MB at the
+// widest projection, 5.5 us) read once, about 2 int8 operations per byte
+// against the card's ~590; at the narrow projections a launch's fixed
+// costs (the K loop's first load, two cluster barriers).  At prefill
+// (M = 256) the product is about 500 operations per byte, but the planes
+// add 4 bytes per unprotected bit per output (crt3: 5 of 8, 35 MB at 256 x
+// 6912), so bytes and the int8 tensor-core rate are close; this mma.sync
+// core is held back by the latency of its K loop instead.
 //
-// What bounds it.  The planes: 4 bytes per plane word, up to 8 planes per
-// output.  At M = 256, N = 6912 the unprotected planes of crt3 (5 of 8) are
-// 35 MB against 24 MB of x, w and y; at decode (M = 4) the 17.7 MB of w
-// dominate.  Both are bytes, not operations (about 2-500 int8 operations
-// per byte against the card's ~590).  This first version does not reach the
-// bound: dp4a on CUDA cores, no pipelining of the K loop.  Its time beside
-// the bound is in PERF.md.
+// Design.  The TPU kernel carries the (128, 128) accumulator in VMEM across
+// a sequential K grid and runs both draws in the epilogue of the last K
+// step.  Here the GEMM is dla::mma_tile, the split-K tensor-core core shared
+// with fused_decode: the plan (kernels/plan.py::gemm_plan) tiles the output
+// 16 x 64 at M <= 16 and 64 x 128 above, and splits K into up to 8 chunks
+// of kc (a multiple of 64) along gridDim.z, so that the main path's decode
+// shapes launch 80-540 blocks on the 132 SMs; each block streams its chunk
+// of x and w through a ring of 16-byte cp.async stages, transposes each w
+// tile in shared memory with __byte_perm, and accumulates with
+// mma.sync.m16n8k32 s8.  The splits of one output tile are one thread
+// block cluster: each parks its partials in shared memory, and after a
+// cluster barrier each block sums its slice of the tile over the cluster's
+// shared memory (dla::park, dla::Slice).  Since t is static, the same
+// launch finishes the word: one launch per call, no scratch.
+//
+// The epilogue works on 4 columns of a row at a time (dla::flip8x4): one
+// 16-byte load of the parked sums per block of the cluster, and 16-byte
+// plane loads, which keep enough bytes in flight at two blocks per SM.
+// Each word reads only the stream its channel selects, and of it only the
+// planes of its unprotected bits (8 - nb or 8 - ib): the same result as
+// computing both draws and selecting.  Where N, the planes or y do not
+// allow 16-byte loads and 4-byte stores, it goes word by word.
+//
+// Exactness.  Every partial and every total is an exact int32: |acc| <=
+// 128 * 128 * K < 2^31 for K < 2^17, which the wrapper checks, so the
+// chunks' integer sum is the product's whatever the chunks.  The 24-bit
+// saturation is applied to the total only, never to a partial: a partial
+// beyond 2^23 may come back under it once the other chunks are added.
 
 #include "dla.cuh"
 
 namespace {
 
-template <int TM>
-__global__ void __launch_bounds__(dla::kThreads)
+using dla::DecodeCfg;
+using dla::PrefillCfg;
+
+struct Epilogue {
+  const uint32_t* __restrict__ rnd_ord;
+  const uint32_t* __restrict__ rnd_imp;
+  const int32_t* __restrict__ imp;
+  int8_t* __restrict__ y;
+  int M, N, t, ib, nb;
+  uint32_t thresh;
+
+  // y[m, n] from the complete, unsaturated sum and the channel's mask bit
+  // (loads only)
+  __device__ __forceinline__ int8_t operator()(int acc, int m, int n,
+                                               bool important) const {
+    const size_t o = (size_t)m * N + n;
+    const int u = dla::trunc8(dla::saturate24(acc), t) & 0xFF;
+    return (int8_t)dla::sext8(dla::flip8(u, (important ? rnd_imp : rnd_ord) + o,
+                                         (size_t)M * N, thresh,
+                                         important ? ib : nb));
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads)
 protected_mm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    const uint32_t* __restrict__ rnd_ord,
-                    const uint32_t* __restrict__ rnd_imp,
-                    const int32_t* __restrict__ imp, int8_t* __restrict__ y,
-                    int M, int N, int K, int t, uint32_t thresh, int ib,
-                    int nb) {
-  const int m0 = blockIdx.y * 16 * TM, n0 = blockIdx.x * dla::kTileN;
-  int acc[TM][4];
-  dla::gemm_tile<TM>(x, w, M, N, K, m0, n0, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t plane = (size_t)M * N;
+                    int K, int kc, int vec_x, int vec_w, int vec_p,
+                    Epilogue ep) {
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  const int k0 = blockIdx.z * kc, k1 = min(k0 + kc, K);
+  // the tile's mask bits, read once (visible after mma_tile's barriers)
+  __shared__ bool important[C::BN];
+  for (int c = threadIdx.x; c < C::BN; c += C::kThreads)
+    important[c] = n0 + c < ep.N && ep.imp[n0 + c] != 0;
+  int acc[C::MT][C::NT][4], unused[C::MT][C::NT][4];
+  dla::mma_tile<C, false>(x, w, nullptr, ep.M, ep.N, K, m0, n0, k0, k1,
+                          vec_x, vec_w, acc, unused);
+  const auto sl = dla::park<C, false>(acc, unused, ep.M, m0);
+  // the slice by quads of 4 columns of a row: quad q = index(j) < end / 4 is
+  // row q / (BN / 4), columns 4 (q % (BN / 4)) .. +3; 16-byte plane loads
+  // where N, the planes and y allow them, else word by word
+  constexpr int kQ = C::BN / 4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= N) continue;
-    const bool important = imp[n] != 0;
-    const uint32_t* rnd = important ? rnd_imp : rnd_ord;
-    const int prot = important ? ib : nb;
+  for (int j = 0; j < sl.kPer / 4; ++j) {
+    const int q = sl.index(j);
+    if (q >= sl.end / 4) break;
+    const int r = q / kQ, c = 4 * (q % kQ), m = m0 + r, n = n0 + c;
+    const int4 tot = sl.sum4(r, q % kQ);
+    const int total[4] = {tot.x, tot.y, tot.z, tot.w};
+    const size_t o = (size_t)m * ep.N + n;
+    if (vec_p && n + 3 < ep.N) {
+      int u[4];
+      bool imp4[4];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + 16 * i;
-      if (m >= M) continue;
-      const size_t o = (size_t)m * N + n;
-      const int u = dla::trunc8(dla::saturate24(acc[i][j]), t) & 0xFF;
-      y[o] = (int8_t)dla::sext8(dla::flip8(u, rnd + o, plane, thresh, prot));
+      for (int e = 0; e < 4; ++e) {
+        u[e] = dla::trunc8(dla::saturate24(total[e]), ep.t) & 0xFF;
+        imp4[e] = important[c + e];
+      }
+      dla::flip8x4(u, imp4, ep.rnd_ord, ep.rnd_imp, o, (size_t)ep.M * ep.N,
+                   ep.thresh, ep.ib, ep.nb);
+      uint32_t packed = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) packed |= (uint32_t)(u[e] & 0xFF) << (8 * e);
+      *reinterpret_cast<uint32_t*>(ep.y + o) = packed;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < ep.N)
+          ep.y[o + e] = ep(total[e], m, n + e, important[c + e]);
     }
   }
+  sl.done();
 }
 
 }  // namespace
 
 extern "C" {
 
+// (bm, bn, kc, splits) is the launch plan of kernels/plan.py::gemm_plan.
 // Returns the CUDA error of the launch (0 on success); the caller raises on
 // anything else.
 int protected_mm_launch(const void* x, const void* w, const void* rnd_ord,
                         const void* rnd_imp, const void* imp, void* y, int M,
                         int N, int K, int t, unsigned int thresh, int ib,
-                        int nb, void* stream) {
+                        int nb, int bm, int bn, int kc, int splits,
+                        void* stream) {
   if (M == 0 || N == 0) return 0;
+  if (!dla::plan_ok(M, N, K, bm, bn, kc, splits)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Epilogue ep{static_cast<const uint32_t*>(rnd_ord),
+                    static_cast<const uint32_t*>(rnd_imp),
+                    static_cast<const int32_t*>(imp), static_cast<int8_t*>(y),
+                    M, N, t, ib, nb, thresh};
   auto xp = static_cast<const int8_t*>(x);
   auto wp = static_cast<const int8_t*>(w);
-  auto ro = static_cast<const uint32_t*>(rnd_ord);
-  auto ri = static_cast<const uint32_t*>(rnd_imp);
-  auto ip = static_cast<const int32_t*>(imp);
-  auto yp = static_cast<int8_t*>(y);
-  const dim3 grid = dla::gemm_grid(M, N);
-  if (dla::small_m(M))
-    protected_mm_kernel<1><<<grid, dla::kThreads, 0, s>>>(
-        xp, wp, ro, ri, ip, yp, M, N, K, t, thresh, ib, nb);
-  else
-    protected_mm_kernel<4><<<grid, dla::kThreads, 0, s>>>(
-        xp, wp, ro, ri, ip, yp, M, N, K, t, thresh, ib, nb);
-  return cudaGetLastError();
+  const int vx = dla::vec_ok(x, K), vw = dla::vec_ok(w, N);
+  // 16-byte plane loads and 4-byte stores of y: rows of 4k words, aligned
+  const int vp = N % 4 == 0 && dla::vec_ok(rnd_ord, 16) &&
+                 dla::vec_ok(rnd_imp, 16) && reinterpret_cast<uintptr_t>(y) % 4 == 0;
+  if (bm == DecodeCfg::BM)
+    return dla::launch_mma<DecodeCfg, false>(protected_mm_kernel<DecodeCfg>, M, N, splits, s, xp, wp, K, kc, vx, vw, vp, ep);
+  return dla::launch_mma<PrefillCfg, false>(protected_mm_kernel<PrefillCfg>, M, N, splits, s, xp, wp, K, kc, vx, vw, vp, ep);
 }
 
 const char* protected_mm_error_string(int err) {

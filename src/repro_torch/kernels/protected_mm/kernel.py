@@ -6,6 +6,10 @@ and flip epilogue in ``kernels/csrc/dla.cuh``); its header says what it
 computes, how it is laid out across blocks and what bounds it.  It is built
 with ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.
 
+The launch plan (block tile, K chunk, number of chunks) is
+``kernels/plan.py::gemm_plan``'s, for the device's SM count; the launcher
+takes it as arguments, so the CPU tests can hold the chunking it implies.
+
 ``protected_mm`` takes the plain version (``ref.protected_mm_ref``) only for
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``protected_mm.launches`` counts the kernel's launches.
@@ -19,8 +23,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import (build_library, check_operand, launch,
-                                      load)
+                                      load, sm_count)
 from repro_torch.kernels.fault_inject.ref import threshold
+from repro_torch.kernels.plan import gemm_plan
 from repro_torch.kernels.protected_mm.ref import protected_mm_ref
 from repro_torch.kernels.qmatmul.kernel import check_gemm
 
@@ -38,7 +43,7 @@ def build():
 def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return load("protected_mm", SOURCES,
-                [ptr] * 6 + [i32] * 4 + [ctypes.c_uint32] + [i32] * 2)
+                [ptr] * 6 + [i32] * 4 + [ctypes.c_uint32] + [i32] * 6)
 
 
 def protected_mm(xq, wq, rnd_ord, rnd_imp, imp, *, t: int, ber, ib: int,
@@ -67,7 +72,8 @@ def protected_mm(xq, wq, rnd_ord, rnd_imp, imp, *, t: int, ber, ib: int,
     y = torch.empty((M, N), dtype=torch.int8, device=dev)
     launch(_lib(), "protected_mm", dev, xq.data_ptr(), wq.data_ptr(),
            rnd_ord.data_ptr(), rnd_imp.data_ptr(), imp.data_ptr(),
-           y.data_ptr(), M, N, K, t, threshold(ber), int(ib), int(nb))
+           y.data_ptr(), M, N, K, t, threshold(ber), int(ib), int(nb),
+           *gemm_plan(M, K, N, sm_count(dev)))
     protected_mm.launches += 1
     return y
 

@@ -16,7 +16,10 @@ is equal.  (tests/test_torch_fused_decode.py found the same of the fused
 backend.)
 
 The CUDA kernels themselves are held to the plain versions on the card, in
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py and chip_smoke.py.  What their design rests on is
+held here in plain math: protected_mm's GEMM adds int32 partials over the
+launch plan's K chunks (kernel.gemm_plan, the plan the launcher is given)
+and saturates only the total, which gives protected_mm_ref bitwise.
 """
 import jax
 import jax.numpy as jnp
@@ -40,6 +43,8 @@ from repro.kernels.qmatmul.ops import quant_linear as jax_quant_linear
 from repro.kernels.qmatmul.ref import qmatmul_ref as jax_qmatmul_ref
 from repro_torch import ft as tft
 from repro_torch.core import prng
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import plan as tplan
 from repro_torch.kernels.fault_inject import kernel as fi_kernel
 from repro_torch.kernels.fault_inject import ops as fi_ops
 from repro_torch.kernels.fault_inject.ref import inject_ref, threshold
@@ -198,6 +203,68 @@ def test_inject_matches_jax():
 
 
 # ----------------------------------------------------------- protected_mm --
+# (M, K, N) whose launch plans split K: decode (5 chunks), prefill (7
+# chunks), prefill with a chunk deep enough for a partial past 2**23 (2
+# chunks of 3456), and K under one 64-step (one chunk)
+SPLIT_SHAPES = ((4, 2560, 6912), (256, 2560, 640), (256, 6912, 2560),
+                (1, 31, 130))
+
+
+def _split_matmul(chunks, saturate_each=False):
+    """``Q.int_matmul`` as the kernel's GEMM computes it: the int32
+    partials of the plan's K chunks, added (each saturated first, when
+    asked, to show why the kernel does not)."""
+    def int_matmul(a, b):
+        a, b = a.numpy().astype(np.int64), b.numpy().astype(np.int64)
+        parts = [a[:, k0:k1] @ b[k0:k1] for k0, k1 in chunks]
+        if saturate_each:
+            parts = [Q.saturate(torch.from_numpy(p)).numpy() for p in parts]
+        total = sum(parts)
+        assert np.abs(total).max() < 1 << 31
+        return torch.from_numpy(total.astype(np.int32))
+    return int_matmul
+
+
+@pytest.mark.parametrize("mkn", SPLIT_SHAPES)
+def test_split_k_sum_is_the_plain_version(monkeypatch, mkn):
+    """The launch plan's K chunks cover K once, in 64-aligned chunks of at
+    most MAX_SPLITS; protected_mm_ref whose product is the sum of the
+    chunks' int32 partials, saturated afterwards, equals protected_mm_ref
+    bitwise (t = 13, BER 1e-2, a mixed mask).  Where a chunk is deep
+    enough, row 0 against column 0 has a first partial past 2**23 and a
+    total of about 2**20, and saturating each partial gives another y."""
+    m, k, n = mkn
+    plan = pm_kernel.gemm_plan(m, k, n)
+    chunks = plan.k_chunks(k)
+    assert [c for k0, k1 in chunks for c in range(k0, k1)] == list(range(k))
+    assert plan.kc % tplan.BK == 0 and len(chunks) <= tplan.MAX_SPLITS
+    assert all(k1 > k0 for k0, k1 in chunks)
+    rng = np.random.default_rng(k)
+    mm, nn = min(m, 6), min(n, 12)
+    x, w = _i8(rng, mm, k), _i8(rng, k, nn)
+    straddles = len(chunks) > 1 and 127 * 127 * plan.kc > 1 << 23
+    if straddles:
+        x[0] = 127
+        w[:plan.kc, 0], w[plan.kc:, 0] = 127, -127
+        w[plan.kc:plan.kc + 64, 0] = 0
+        x0, w0 = x[0].astype(np.int64), w[:, 0].astype(np.int64)
+        assert x0[:plan.kc] @ w0[:plan.kc] > 1 << 23 > abs(x0 @ w0)
+    args = (torch.from_numpy(x), torch.from_numpy(w),
+            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
+            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
+            torch.from_numpy((rng.random(nn) < 0.4).astype(np.int32)))
+    kw = dict(t=13, ber=1e-2, ib=2, nb=1)
+    want = protected_mm_ref(*args, **kw)
+    with monkeypatch.context() as mp:
+        mp.setattr(Q, "int_matmul", _split_matmul(chunks))
+        got = protected_mm_ref(*args, **kw)
+        mp.setattr(Q, "int_matmul", _split_matmul(chunks, True))
+        per_split = protected_mm_ref(*args, **kw)
+    _eq(got, want)
+    if straddles:
+        assert not torch.equal(per_split, want)
+
+
 @pytest.mark.parametrize("t,ber,ib,nb", (
     (0, 0.0, 2, 1), (3, 1e-2, 2, 1), (16, 1e-2, 8, 0), (5, 1.0, 0, 8),
     (7, 1.0, 3, 3), (1, 1e-2, 0, 0)))

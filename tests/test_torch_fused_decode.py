@@ -20,6 +20,12 @@
       keys) hold the jitted path; each jitted case costs a compile.
   * The port's fused backend equals its reference backend bitwise, in its
     integers and in y.
+  * The CUDA kernel's one invariant, in plain math: its GEMM adds int32
+    partials over the launch plan's K chunks (kernel.gemm_plan, the plan the
+    launcher is given) and saturates only the total; the chunks cover K
+    once, and fused_ref with its product computed that way is fused_ref.
+    Saturating each partial instead would differ where a partial passes
+    2**23 and the total does not.
 
 The CUDA kernel itself is held to the plain version on the card, in
 tests/test_torch_gpu.py.
@@ -38,6 +44,8 @@ from repro.kernels.fused_decode.kernel import fused_decode as pallas_fused
 from repro.kernels.fused_decode.ref import fused_ref as jax_fused_ref
 from repro_torch import ft as tft
 from repro_torch.core import prng
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import plan as tplan
 from repro_torch.kernels.fused_decode import kernel as tkernel
 from repro_torch.kernels.fused_decode import ops as tops
 from repro_torch.kernels.fused_decode.ref import fused_ref
@@ -128,6 +136,71 @@ def test_plain_matches_pallas_and_jax_ref_at_the_clamps(per_row, dppu_src,
             assert (tt == 16).all()
         elif per_row and not perrow_wf:
             assert tt[0, 0] == tt[1, 0] == 16 and tt[2, 0] == q_scale
+
+
+# (M, K, N) whose launch plans split K: decode (8 chunks), prefill with a
+# chunk deep enough for a partial past 2**23 (2 chunks of 3456), a ragged
+# last chunk (2561 = 13 x 192 + 65), and K under one 64-step (one chunk)
+SPLIT_SHAPES = ((4, 2560, 640), (256, 6912, 2560), (17, 2561, 130),
+                (16, 31, 648))
+
+
+def _split_matmul(chunks, saturate_each=False):
+    """``Q.int_matmul`` as the kernel's GEMM computes it: the int32
+    partials of the plan's K chunks, added (each saturated first, when
+    asked, to show why the kernel does not)."""
+    def int_matmul(a, b):
+        a, b = a.numpy().astype(np.int64), b.numpy().astype(np.int64)
+        parts = [a[:, k0:k1] @ b[k0:k1] for k0, k1 in chunks]
+        if saturate_each:
+            parts = [Q.saturate(torch.from_numpy(p)).numpy() for p in parts]
+        total = sum(parts)
+        assert np.abs(total).max() < 1 << 31
+        return torch.from_numpy(total.astype(np.int32))
+    return int_matmul
+
+
+def _straddle(xq, wq, kc):
+    """Row 0 against column 0: the first chunk's partial 127 * 127 * kc
+    (> 2**23 once kc > 520), the rest -127 * 127 but for 64 zeros, so the
+    total is 127 * 127 * 64 (about 2**20)."""
+    xq[0] = 127
+    wq[:kc, 0], wq[kc:, 0] = 127, -127
+    wq[kc:kc + 64, 0] = 0
+
+
+@pytest.mark.parametrize("mkn", SPLIT_SHAPES)
+def test_split_k_sum_is_the_plain_version(monkeypatch, mkn):
+    """The launch plan's K chunks cover K once, in 64-aligned chunks of at
+    most MAX_SPLITS; fused_ref whose product is the sum of the chunks'
+    int32 partials, saturated afterwards, equals fused_ref bitwise, global
+    and per-row t.  The chunking depends on K alone, so a few rows and
+    columns at the full K stand for the shape."""
+    m, k, n = mkn
+    plan = tkernel.gemm_plan(m, k, n)
+    chunks = plan.k_chunks(k)
+    assert [c for k0, k1 in chunks for c in range(k0, k1)] == list(range(k))
+    assert plan.kc % tplan.BK == 0 and len(chunks) <= tplan.MAX_SPLITS
+    assert all(k1 > k0 for k0, k1 in chunks)
+    ops = _operands(min(m, 6), k, min(n, 12), seed=k)
+    straddles = len(chunks) > 1 and 127 * 127 * plan.kc > 1 << 23
+    if straddles:
+        _straddle(ops["xq"], ops["wq"], plan.kc)
+    x, w, oflips = (torch.from_numpy(ops[a]) for a in ("xq", "wq", "oflips"))
+    for per_row in (False, True):
+        want = fused_ref(x, w, oflips, 2, per_row=per_row)
+        with monkeypatch.context() as mp:
+            mp.setattr(Q, "int_matmul", _split_matmul(chunks))
+            got = fused_ref(x, w, oflips, 2, per_row=per_row)
+            mp.setattr(Q, "int_matmul", _split_matmul(chunks, True))
+            per_split = fused_ref(x, w, oflips, 2, per_row=per_row)
+        _assert_bitwise(got[0], want[0], f"y per_row={per_row}")
+        _assert_bitwise(got[1], want[1], f"t per_row={per_row}")
+        if straddles:
+            assert not torch.equal(per_split[0], want[0])
+    if straddles:
+        x0, w0 = ops["xq"][0].astype(np.int64), ops["wq"][:, 0].astype(np.int64)
+        assert x0[:plan.kc] @ w0[:plan.kc] > 1 << 23 > abs(x0 @ w0)
 
 
 def _check_plain(ops, q_scales, per_row, dppu_src, perrow_wf):

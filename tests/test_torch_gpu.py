@@ -30,6 +30,11 @@ from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 torch.set_num_threads(1)
 
 POLICIES = ("base", "crt1", "crt2", "crt3", "arch", "alg", "cl")
+# shapes that cross the GEMM core's boundaries (as chip_smoke.py's): M at
+# and past the 16-row decode tile, K under one 64-step, ragged, and split
+# with a ragged last chunk, N ragged against the tiles and 16-byte rows
+EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
+                    for n in (130, 648))
 MODES = ([(pr, d, False) for pr in (False, True)
           for d in ("none", "reuse", "w", "wcl")]
          + [(pr, d, True) for pr in (False, True) for d in ("none", "w", "wcl")])
@@ -72,10 +77,22 @@ def _edges(ops):
     puts the 8-bit window's own clamp below 2**23; a narrower saturation
     would show.)"""
     xq, wq = ops["xq"], ops["wq"]
-    xq[0], xq[1], xq[2] = 127, -128, 0
-    xq[3] = xq[3] % 3 - 1
+    for r, v in zip(range(xq.shape[0]), (127, -128, 0)):
+        xq[r] = v
+    if xq.shape[0] > 3:
+        xq[3] = xq[3] % 3 - 1
     wq[:, 0], wq[:, 1], wq[:, 2] = 127, -128, 0
     return ops
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 1 byte off a 16-byte
+    boundary (the kernels' 16-byte copies do not apply to it)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    return out
 
 
 def _check_kernel(ops, q, m, per_row, dppu_src, perrow_wf):
@@ -130,6 +147,40 @@ def test_kernel_matches_plain_at_the_clamps(cuda, mkn, per_row, dppu_src,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("per_row,dppu_src", [(pr, d) for pr in (False, True)
+                                              for d in ("none", "reuse", "w",
+                                                        "wcl")])
+@pytest.mark.parametrize("mkn", EDGE_SHAPES)
+def test_kernel_matches_plain_at_the_core_boundaries(cuda, mkn, per_row,
+                                                     dppu_src):
+    """Ragged tiles, K chunks and 16-byte rows, on random operands (q_scale
+    4) and on clamp-driving ones (q_scale 0, 12, 20)."""
+    m, k, n = mkn
+    _check_kernel(_operands(m, k, n, cuda, seed=m + k + n), 4, m, per_row,
+                  dppu_src, False)
+    ops = _edges(_operands(m, k, n, cuda, seed=m + k + n + 1))
+    for q in (0, 12, 20):
+        _check_kernel(ops, q, m, per_row, dppu_src, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn,per_row,dppu_src,perrow_wf", [
+    (mkn, *mode) for mkn in ((4, 2560, 640), (17, 2561, 648))
+    for mode in MODES if mkn[0] == 4 or not mode[2]])
+def test_kernel_matches_plain_on_misaligned_operands(cuda, mkn, per_row,
+                                                     dppu_src, perrow_wf):
+    """xq and wq (and wq_clean) contiguous but 1 byte off 16-byte
+    alignment: the byte-load path of the same kernel (per-row weight flips
+    at M = 4 only, for their (M, K, N) flip words' memory)."""
+    m, k, n = mkn
+    ops = _operands(m, k, n, cuda, seed=n)
+    for name in ("xq", "wq", "wq_clean"):
+        ops[name] = _misaligned(ops[name])
+    _check_kernel(ops, 4, m, per_row, dppu_src, perrow_wf)
+    _check_kernel(_edges(ops), 12, m, per_row, dppu_src, perrow_wf)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_bad_operands(cuda):
     ops = _operands(4, 64, 32, cuda, seed=0)
     q = torch.zeros(1, dtype=torch.int32, device=cuda)
@@ -159,7 +210,7 @@ def test_fused_backend_equals_reference_and_cpu(cuda, policy_name):
 
 
 # ------------------------------------------- qmatmul, protected_mm, inject --
-DLA_SHAPES = ((4, 2560, 640), (37, 1000, 130), (5, 200, 130))
+DLA_SHAPES = ((4, 2560, 640), (37, 1000, 130), (5, 200, 130)) + EDGE_SHAPES
 # (t, ber, ib, nb): t at 0, 1 and 16; BER 0, 1e-2 and 1.0; ib and nb at 0
 # and 8 and between
 PM_EDGES = ((0, 0.0, 2, 1), (1, 1e-2, 0, 0), (16, 1e-2, 8, 8),
@@ -177,7 +228,8 @@ def _dla_operands(m, k, n, dev, seed, edges=False):
     wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
                        dtype=torch.int8)
     if edges:
-        xq[0], xq[1], xq[2] = 127, -128, 0
+        for r, v in zip(range(m), (127, -128, 0)):
+            xq[r] = v
         wq[:, 0], wq[:, 1] = 127, -128
 
     def planes():
@@ -219,6 +271,20 @@ def test_protected_mm_matches_plain(cuda, mkn, edges):
         y = pm_kernel.protected_mm(xq, wq, ro, ri, imp, **kw)
         torch.cuda.synchronize()
         assert pm_kernel.protected_mm.launches == before + 1
+        assert torch.equal(y, protected_mm_ref(xq, wq, ro, ri, imp, **kw)), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", (False, True))
+@pytest.mark.parametrize("mkn", ((4, 2560, 640), (17, 2561, 648)))
+def test_protected_mm_matches_plain_on_misaligned_operands(cuda, mkn, edges):
+    xq, wq, ro, ri, imp = _dla_operands(*mkn, cuda, seed=mkn[2],
+                                        edges=edges)
+    xq, wq = _misaligned(xq), _misaligned(wq)
+    for t, ber, ib, nb in PM_EDGES:
+        kw = dict(t=t, ber=ber, ib=ib, nb=nb)
+        y = pm_kernel.protected_mm(xq, wq, ro, ri, imp, **kw)
+        torch.cuda.synchronize()
         assert torch.equal(y, protected_mm_ref(xq, wq, ro, ri, imp, **kw)), kw
 
 
