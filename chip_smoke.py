@@ -10,9 +10,10 @@ its last line:
   1. device: the card's name and power limit;
   2. build: the port's four CUDA kernels from the checkout's sources
      (build/), one nvcc each, all started together; ptxas's register and
-     spill lines; fused_decode's and protected_mm's libraries must show no
-     spill, and their SASS (cuobjdump) int8 tensor-core instructions (IMMA)
-     and cp.async copies (LDGSTS);
+     spill lines; the libraries of the three GEMM kernels (fused_decode,
+     protected_mm, qmatmul) must show no spill, and their SASS (cuobjdump)
+     int8 tensor-core instructions (IMMA) and cp.async copies (LDGSTS);
+     fault_inject's SASS must show 16-byte global loads (LDG.E.128);
   3. kernels: fused_decode against its plain version, bitwise, in every mode
      at the main path's shapes and at shapes that cross the split-K and
      16-byte-copy boundaries (M 1/16/17, K 31/200/2561, N 130/648), and with
@@ -25,8 +26,11 @@ its last line:
      versions, bitwise, at the main path's shapes, at the same boundary
      shapes and misaligned operands, and at two ragged ones, on random and
      saturating operands, t 0/1/16, BER 0/1e-2/1.0, protection counts 0 to
-     8, a mixed important mask; timed like fused_decode (no PyTorch call
-     computes fault_inject's function);
+     8 (fault_inject also -1 and 9, mixed within groups of 4 columns, and
+     x, planes and protect 1 word off 16-byte alignment), a mixed
+     important mask; timed like fused_decode (no PyTorch call computes
+     fault_inject's function); then a floor line: fault_inject's time per
+     launch at 1 x 4, a launch's fixed cost on the card;
   5. entry points: quant_linear and inject, the kernel-level entry points of
      qmatmul and fault_inject, at the decode shapes, equal to the CPU;
   6. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed),
@@ -54,6 +58,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,8 +91,8 @@ EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
                     for n in (130, 648))
 # (M, K, N) at which xq and wq also run 1 byte off 16-byte alignment
 MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
-# the two kernels on the redesigned GEMM core
-CORE_KERNELS = ("fused_decode", "protected_mm")
+# the kernels on the split-K tensor-core GEMM core
+CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
 
 
 def emit(obj):
@@ -198,19 +203,27 @@ def phase_build():
             if spills or not row["IMMA"] or not row["LDGSTS"]:
                 raise AssertionError(f"{name}: {row}: the GEMM core must "
                                      "issue IMMA and LDGSTS and not spill")
+        if name == "fault_inject":
+            row.update(sass_counts(path))
+            if not row["LDG.E.128"]:
+                raise AssertionError(f"{name}: {row}: the streaming kernel "
+                                     "must issue 16-byte loads")
         emit(row)
     emit({"phase": "build", "all_s": round(time.perf_counter() - t0, 3)})
 
 
 def sass_counts(path):
-    """IMMA (int8 mma) and LDGSTS (cp.async) instructions in a library's
-    SASS, by cuobjdump."""
+    """IMMA (int8 mma), LDGSTS (cp.async) and 16-byte global load
+    (LDG.E.128, with any cache qualifier before the width) instructions in
+    a library's SASS, by cuobjdump."""
     from repro_torch.kernels.build import nvcc
     cuobjdump = Path(nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return {op: sass.count(op) for op in ("IMMA", "LDGSTS")}
+    return {"IMMA": sass.count("IMMA"), "LDGSTS": sass.count("LDGSTS"),
+            "LDG.E.128": len(re.findall(r"LDG\.E(?:\.[A-Z0-9_]+)*\.128",
+                                        sass))}
 
 
 def _operands(torch, g, dev, M, K, N):
@@ -353,7 +366,8 @@ def _dla_operands(torch, g, dev, M, K, N, edges=False):
     accumulator at both ends once K > 516, and a zero row); two plane
     streams as int32 bit patterns with low words mixed in (BER 1e-2 flips)
     and all-ones words in row 0 (BER 1.0 leaves them); a mixed important
-    mask; int32 8-bit values and per-column protection counts 0..8."""
+    mask; int32 8-bit values and per-column protection counts 0..8, and
+    -1..9 mixed within groups of 4 columns (prot_wide)."""
     xq = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                        dtype=torch.int8)
     wq = torch.randint(-128, 128, (K, N), generator=g, device=dev,
@@ -376,13 +390,17 @@ def _dla_operands(torch, g, dev, M, K, N, edges=False):
         imp=(torch.rand(N, generator=g, device=dev) < 0.4).to(torch.int32),
         x32=torch.randint(-128, 128, (M, N), generator=g, device=dev,
                           dtype=torch.int32),
-        prot=(torch.arange(N, device=dev) % 9).to(torch.int32))
+        prot=(torch.arange(N, device=dev) % 9).to(torch.int32),
+        prot_wide=(torch.arange(N, device=dev) * 7 % 11 - 1).to(torch.int32))
 
 
 def _check_dla(torch, ops):
     """Each DLA kernel against its plain version, bitwise, on ``ops``:
     qmatmul at t 0/1/16, protected_mm at PM_EDGES, fault_inject at BER
-    0/1e-2/1.0.  Returns {kernel: max |difference|} (0, or it raised)."""
+    0/1e-2/1.0 with both protection vectors, on its operands as they are,
+    and with x, the planes or protect (each, then all three) 1 word off
+    16-byte alignment.  Returns {kernel: max |difference|} (0, or it
+    raised)."""
     from repro_torch.kernels.fault_inject.kernel import fault_inject
     from repro_torch.kernels.fault_inject.ref import inject_ref
     from repro_torch.kernels.protected_mm.kernel import protected_mm
@@ -398,11 +416,15 @@ def _check_dla(torch, ops):
         cases.append(("protected_mm", kw,
                       functools.partial(protected_mm, *pm_args, **kw),
                       functools.partial(protected_mm_ref, *pm_args, **kw)))
-    fi_args = (ops["x32"], ops["ro"], ops["prot"])
-    for ber in (0.0, 1e-2, 1.0):
-        cases.append(("fault_inject", ber,
-                      functools.partial(fault_inject, *fi_args, ber),
-                      functools.partial(inject_ref, *fi_args, ber)))
+    for prot in ("prot", "prot_wide"):
+        for off in ((), (0,), (1,), (2,), (0, 1, 2)):
+            fi_args = [ops["x32"], ops["ro"], ops[prot]]
+            for i in off:
+                fi_args[i] = _misaligned(torch, fi_args[i])
+            for ber in (0.0, 1e-2, 1.0):
+                cases.append(("fault_inject", (ber, prot, "misaligned", off),
+                              functools.partial(fault_inject, *fi_args, ber),
+                              functools.partial(inject_ref, *fi_args, ber)))
     err = dict.fromkeys(KERNELS[1:], 0)
     for name, case, kernel_fn, plain_fn in cases:
         y = kernel_fn()
@@ -462,6 +484,7 @@ def phase_dla_kernels(torch):
         b_ms, b_by = roofline(gemm_bytes, gemm_ops)
         rows["qmatmul"].append(dict(
             shape=[M, K, N], mode=f"t={t}", launches_per_generation=0,
+            plan=list(gemm_plan(M, K, N, sm_count(dev))),
             kernel_ms=cuda_ms(torch, functools.partial(qmatmul, xq, wq, t),
                               20),
             bound_ms=b_ms, bound_by=b_by,
@@ -502,6 +525,19 @@ def phase_dla_kernels(torch):
                                              / rows[name][-1]["kernel_ms"])
             emit({"phase": "kernel", "kernel": name, **rows[name][-1]})
         del ops
+    fi_args = (torch.zeros((1, 4), dtype=torch.int32, device=dev),
+               torch.zeros((8, 1, 4), dtype=torch.int32, device=dev),
+               torch.full((4,), MAIN_PM["nb"], dtype=torch.int32, device=dev),
+               MAIN_PM["ber"])
+    emit({"phase": "floor", "kernel": "fault_inject", "shape": [1, 4],
+          "mode": "protect=3 on every column, BER 1e-4",
+          "kernel_ms": cuda_ms(torch, functools.partial(fault_inject,
+                                                        *fi_args), 20),
+          "what": "one launch over 4 words (x, y, protect and 5 planes: "
+                  "128 bytes), timed as the kernel phase times (queued "
+                  "behind a device sleep): a launch's fixed cost, beside "
+                  "which the 4 x N shapes of qmatmul and fault_inject are "
+                  "read"})
     torch.cuda.synchronize()
     return rows, max_err
 

@@ -1,34 +1,34 @@
 // Device code shared by the DLA kernels (fused_decode, protected_mm, qmatmul,
-// fault_inject): the int8 GEMM cores, the 24-bit saturation, the 8-bit
-// window and the bit-flip epilogue.  Every kernel that includes this header
-// is rebuilt when it changes: kernels/build.py hashes every header of this
-// directory.
+// fault_inject): the int8 GEMM core, the 24-bit saturation, the 8-bit
+// window and the bit-flip epilogues.  Every kernel that includes this
+// header is rebuilt when it changes: kernels/build.py hashes every header of
+// this directory.
 //
-// Two GEMM cores live here.
-//
-// mma_tile, the split-K tensor-core core (fused_decode, protected_mm).  A
-// block owns a BM x BN output tile and one chunk [k0, k1) of K; the launch
-// plan (kernels/plan.py::gemm_plan) picks the tile shape, the chunk and the
-// number of chunks ("splits", gridDim.z, at most 8) so that a decode-shaped
-// M still puts several blocks on every SM.  The K loop walks the chunk in
-// steps of BK = 64 through a ring of STAGES shared-memory stages filled by
-// 16-byte cp.async copies (zero-filled outside the matrix), so the next
-// steps' loads are in flight while this step's products run.  The w tile
-// arrives as it lies in memory, (k, n) with n contiguous, but an s8 mma
-// wants B k-contiguous per column; each step therefore transposes it once
-// in shared memory, 4x4 bytes per thread with __byte_perm, into [n][k] (the
-// layout an s8 wgmma would also take).  Fragments are 32-bit shared loads,
-// and mma.sync.m16n8k32.s32.s8.s8.s32 accumulates in int32 with no
-// saturation (rows past M are zero at decode).  The row strides are padded
-// by 16 bytes and the transpose's threads are laid out so that its reads,
-// its writes and the fragment loads are free of bank conflicts.  Where a
-// 16-byte copy is not possible (K or N not a multiple of 16, or a base not
-// 16-byte aligned) the same stages are filled by masked byte loads instead:
-// the vec_x / vec_w flags, decided by the launcher, choose per operand.
+// mma_tile, the split-K tensor-core GEMM core (fused_decode, protected_mm,
+// qmatmul).  A block owns a BM x BN output tile and one chunk [k0, k1) of
+// K; the launch plan (kernels/plan.py::gemm_plan) picks the tile shape, the
+// chunk and the number of chunks ("splits", gridDim.z, at most 8) so that
+// a decode-shaped M still puts several blocks on every SM.  The K loop
+// walks the chunk in steps of BK = 64 through a ring of STAGES
+// shared-memory stages filled by 16-byte cp.async copies (zero-filled
+// outside the matrix), so the next steps' loads are in flight while this
+// step's products run.  The w tile arrives as it lies in memory, (k, n)
+// with n contiguous, but an s8 mma wants B k-contiguous per column; each
+// step therefore transposes it once in shared memory, 4x4 bytes per thread
+// with __byte_perm, into [n][k] (the layout an s8 wgmma would also take).
+// Fragments are 32-bit shared loads, and mma.sync.m16n8k32.s32.s8.s8.s32
+// accumulates in int32 with no saturation (rows past M are zero at
+// decode).  The row strides are padded by 16 bytes and the transpose's
+// threads are laid out so that its reads, its writes and the fragment loads
+// are free of bank conflicts.  Where a 16-byte copy is not possible (K or N
+// not a multiple of 16, or a base not 16-byte aligned) the same stages are
+// filled by masked byte loads instead: the vec_x / vec_w flags, decided by
+// the launcher, choose per operand.
 //
 // The splits of one tile are one thread block cluster (launch_mma).  They
 // add their partials in distributed shared memory (park, Slice), which
-// needs no scratch in device memory, no memset and no atomics.
+// needs no scratch in device memory, no memset and no atomics.  A kernel
+// with a static t finishes its slice by quads of 4 columns (window_quads).
 //
 // Exactness.  Every partial sum and every total is an exact int32:
 // |acc| <= 128 * 128 * K < 2^31 for K < 2^17 (the wrappers check it), so
@@ -36,13 +36,8 @@
 // saturation and the |acc| maxima are taken on the total, never on a
 // partial: a partial beyond 2^23 may come back under it.
 //
-// gemm_tile, the dp4a core (qmatmul): a 16x16 thread grid, each thread TM
-// rows x 4 columns (rows ty + 16 i, columns tx + 16 j) of a (16 TM) x 64
-// output tile, K walked inside the block in steps of 32 with int8 tiles of
-// x and w staged in shared memory (w transposed so that four consecutive k
-// of one column form one 32-bit word).  A column tx + 16 j of the tile is
-// consecutive across the 16 threads of a half warp, so the epilogues' reads
-// of planes and writes of outputs are 64-byte runs.
+// flip8 and flip8x4, the bit-flip epilogue (protected_mm, fault_inject):
+// one word, or four consecutive words of a row from 16-byte plane loads.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -58,7 +53,6 @@ constexpr int kOutBits = 8;
 constexpr int kAccLo = -(1 << (kAccBits - 1));
 constexpr int kAccHi = (1 << (kAccBits - 1)) - 1;
 constexpr int kThreads = 256;
-constexpr int kTileN = 64;
 
 __device__ __forceinline__ int saturate24(int a) {
   return min(max(a, kAccLo), kAccHi);
@@ -83,20 +77,89 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
+// The bits of an 8-bit word that a fault may reach: b < open_bits(prot),
+// the top prot bits being TMR-voted (immune).  8 - prot as int32 arithmetic
+// wraps, as the reference's does: a negative prot exposes every bit, 8 or
+// more none.
+__device__ __forceinline__ int open_bits(int prot) {
+  return (int)((unsigned)kOutBits - (unsigned)prot);
+}
+
 // Flip bit b of the 8-bit word u where plane b's word is below thresh, for
-// the bits b < 8 - prot (the top prot bits are TMR-voted, immune).  The
-// planes hold uint32 words and are compared unsigned; plane b of this
-// output is at planes[b * plane_stride].  A protected bit's plane is not
-// read.
+// the bits b < open_bits(prot).  The planes hold uint32 words and are
+// compared unsigned; plane b of this output is at planes[b *
+// plane_stride].  A protected bit's plane is not read.
 __device__ __forceinline__ int flip8(int u, const uint32_t* __restrict__ planes,
                                      size_t plane_stride, uint32_t thresh,
                                      int prot) {
+  const int open = open_bits(prot);
   int flips = 0;
 #pragma unroll
   for (int b = 0; b < kOutBits; ++b)
-    if (b < kOutBits - prot && planes[b * plane_stride] < thresh)
-      flips |= 1 << b;
+    if (b < open && planes[b * plane_stride] < thresh) flips |= 1 << b;
   return u ^ flips;
+}
+
+// flip8 of four 8-bit words u[j], columns n .. n+3 of one row whose plane
+// words start at offset o (16-byte aligned), with one 16-byte load per
+// plane: lane j leaves its top prot[j] bits alone and takes its planes from
+// stream p1 where second[j] (kTwo only), else from p0.  Plane b of a stream
+// is read only where some lane that takes the stream has bit b open, and
+// every such load is issued before the first comparison.
+template <bool kTwo>
+__device__ __forceinline__ void flip8x4(int (&u)[4], const int (&prot)[4],
+                                        const bool (&second)[4],
+                                        const uint32_t* __restrict__ p0,
+                                        const uint32_t* __restrict__ p1,
+                                        size_t o, size_t plane_stride,
+                                        uint32_t thresh) {
+  int open[4], open0 = 0, open1 = 0;   // the most open bits of each stream
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    open[j] = open_bits(prot[j]);
+    if (kTwo && second[j])
+      open1 = max(open1, open[j]);
+    else
+      open0 = max(open0, open[j]);
+  }
+  const uint4 none = make_uint4(~0u, ~0u, ~0u, ~0u);   // no word is below
+  uint4 w[kOutBits];
+#pragma unroll
+  for (int b = 0; b < kOutBits; ++b) {
+    const uint4 a = b < open0
+        ? *reinterpret_cast<const uint4*>(p0 + b * plane_stride + o) : none;
+    w[b] = a;
+    if (kTwo) {
+      const uint4 c = b < open1
+          ? *reinterpret_cast<const uint4*>(p1 + b * plane_stride + o) : none;
+      w[b] = make_uint4(second[0] ? c.x : a.x, second[1] ? c.y : a.y,
+                        second[2] ? c.z : a.z, second[3] ? c.w : a.w);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < kOutBits; ++b) {
+    const uint32_t wb[4] = {w[b].x, w[b].y, w[b].z, w[b].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (b < open[j] && wb[j] < thresh) u[j] ^= 1 << b;
+  }
+}
+
+// one stream: every lane reads p0
+__device__ __forceinline__ void flip8x4(int (&u)[4], const int (&prot)[4],
+                                        const uint32_t* __restrict__ planes,
+                                        size_t o, size_t plane_stride,
+                                        uint32_t thresh) {
+  const bool first[4] = {false, false, false, false};
+  flip8x4<false>(u, prot, first, planes, nullptr, o, plane_stride, thresh);
+}
+
+// four 8-bit words, low byte first
+__device__ __forceinline__ uint32_t pack4(const int (&u)[4]) {
+  uint32_t packed = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) packed |= (uint32_t)(u[j] & 0xFF) << (8 * j);
+  return packed;
 }
 
 // ------------------------------------------------- the split-K mma core --
@@ -419,101 +482,26 @@ __device__ __forceinline__ Slice<C, kDual> park(const Acc<C>& acc,
            min(C::BM, M - m0) * C::BN};
 }
 
-// Flip bits of four 8-bit words u[j] (columns 4q .. 4q+3 of one row, whose
-// plane words start at offset o) as flip8 does for each, from 16-byte plane
-// loads: plane b of a stream is read where some column takes that stream
-// and has bit b unprotected.  important[j] selects column j's stream.
-__device__ __forceinline__ void flip8x4(int (&u)[4], const bool (&important)[4],
-                                        const uint32_t* __restrict__ ord,
-                                        const uint32_t* __restrict__ imp,
-                                        size_t o, size_t plane_stride,
-                                        uint32_t thresh, int ib, int nb) {
-  const bool any_ord = !(important[0] && important[1] && important[2] &&
-                         important[3]);
-  const bool any_imp = important[0] || important[1] || important[2] ||
-                       important[3];
+// The window step of a kernel with a static t, over this block's slice of
+// the tile by quads of 4 columns of a row (quad q = sl.index(j) < end / 4
+// is row q / (BN / 4), columns 4 (q % (BN / 4)) .. +3): f(r, c, u) with r
+// the quad's row and c its first column in the tile, and u[e] the word of
+// column c + e, its complete total saturated to 24 bits and windowed at t
+// (trunc8: -128 .. 127).  One 16-byte load per block of the cluster
+// (sum4).
+template <class C, bool kDual, class F>
+__device__ __forceinline__ void window_quads(const Slice<C, kDual>& sl, int t,
+                                             F&& f) {
+  constexpr int kQ = C::BN / 4;
 #pragma unroll
-  for (int b = 0; b < kOutBits; ++b) {
-    const uint4 none = make_uint4(~0u, ~0u, ~0u, ~0u);
-    const uint4 wo = any_ord && b < kOutBits - nb
-        ? *reinterpret_cast<const uint4*>(ord + b * plane_stride + o) : none;
-    const uint4 wi = any_imp && b < kOutBits - ib
-        ? *reinterpret_cast<const uint4*>(imp + b * plane_stride + o) : none;
-    const uint32_t w[4] = {important[0] ? wi.x : wo.x, important[1] ? wi.y : wo.y,
-                           important[2] ? wi.z : wo.z, important[3] ? wi.w : wo.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (b < kOutBits - (important[j] ? ib : nb) && w[j] < thresh)
-        u[j] ^= 1 << b;
+  for (int j = 0; j < Slice<C, kDual>::kPer / 4; ++j) {
+    const int q = sl.index(j);
+    if (q >= sl.end / 4) break;
+    const int4 tot = sl.sum4(q / kQ, q % kQ);
+    int u[4] = {trunc8(saturate24(tot.x), t), trunc8(saturate24(tot.y), t),
+                trunc8(saturate24(tot.z), t), trunc8(saturate24(tot.w), t)};
+    f(q / kQ, 4 * (q % kQ), u);
   }
-}
-
-// -------------------------------------------------------- the dp4a core --
-
-// The block's (16 TM) x 64 output tile at (m0, n0): each thread's TM x 4
-// int32 accumulators over all of K, unsaturated.  Rows m >= M and columns
-// n >= N read as zero.
-template <int TM>
-__device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ x,
-                                          const int8_t* __restrict__ w,
-                                          int M, int N, int K, int m0, int n0,
-                                          int (&acc)[TM][4]) {
-  constexpr int BM = 16 * TM, BN = kTileN, BK = 32, KQ = BK / 4;
-  __shared__ int32_t xs[BM][KQ + 1];
-  __shared__ int32_t ws[BN][KQ + 1];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * KQ; i += kThreads) {
-      const int r = i / KQ, q = i % KQ, m = m0 + r, k = k0 + 4 * q;
-      uint32_t v = 0;
-      if (m < M) {
-        const int8_t* p = x + (size_t)m * K + k;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (k + b < K) v |= (uint32_t)(uint8_t)p[b] << (8 * b);
-      }
-      xs[r][q] = (int32_t)v;
-    }
-    for (int i = tid; i < BN * KQ; i += kThreads) {
-      const int c = i % BN, q = i / BN, n = n0 + c, k = k0 + 4 * q;
-      uint32_t v = 0;
-      if (n < N) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (k + b < K)
-            v |= (uint32_t)(uint8_t)w[(size_t)(k + b) * N + n] << (8 * b);
-      }
-      ws[c][q] = (int32_t)v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < KQ; ++q) {
-      int a[TM], b[4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[ty + 16 * i][q];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[tx + 16 * j][q];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Launch geometry of a gemm_tile kernel: a 16-row tile (TM = 1) for
-// decode-shaped M, 64 rows (TM = 4) above it.
-inline bool small_m(int M) { return M <= 16; }
-
-inline dim3 gemm_grid(int M, int N) {
-  const int bm = small_m(M) ? 16 : 64;
-  return dim3((N + kTileN - 1) / kTileN, (M + bm - 1) / bm);
 }
 
 // ------------------------------------------------- host side of mma_tile --

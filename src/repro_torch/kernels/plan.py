@@ -1,5 +1,6 @@
 """Launch plan of the split-K tensor-core GEMM core (``dla::mma_tile`` in
-``kernels/csrc/dla.cuh``), shared by ``fused_decode`` and ``protected_mm``.
+``kernels/csrc/dla.cuh``), shared by ``fused_decode``, ``protected_mm`` and
+``qmatmul``.
 
 The plan is plain integer arithmetic so that the CPU tests can hold it: it
 picks the block tile and cuts K into ``splits`` chunks of ``kc`` (a

@@ -31,25 +31,26 @@
 // Design.  The TPU kernel carries the (128, 128) accumulator in VMEM across
 // a sequential K grid and runs both draws in the epilogue of the last K
 // step.  Here the GEMM is dla::mma_tile, the split-K tensor-core core shared
-// with fused_decode: the plan (kernels/plan.py::gemm_plan) tiles the output
-// 16 x 64 at M <= 16 and 64 x 128 above, and splits K into up to 8 chunks
-// of kc (a multiple of 64) along gridDim.z, so that the main path's decode
-// shapes launch 80-540 blocks on the 132 SMs; each block streams its chunk
-// of x and w through a ring of 16-byte cp.async stages, transposes each w
-// tile in shared memory with __byte_perm, and accumulates with
-// mma.sync.m16n8k32 s8.  The splits of one output tile are one thread
+// with fused_decode and qmatmul: the plan (kernels/plan.py::gemm_plan)
+// tiles the output 16 x 64 at M <= 16 and 64 x 128 above, and splits K into
+// up to 8 chunks of kc (a multiple of 64) along gridDim.z, so that the main
+// path's decode shapes launch 80-540 blocks on the 132 SMs; each block
+// streams its chunk of x and w through a ring of 16-byte cp.async stages,
+// transposes each w tile in shared memory with __byte_perm, and accumulates
+// with mma.sync.m16n8k32 s8.  The splits of one output tile are one thread
 // block cluster: each parks its partials in shared memory, and after a
 // cluster barrier each block sums its slice of the tile over the cluster's
 // shared memory (dla::park, dla::Slice).  Since t is static, the same
 // launch finishes the word: one launch per call, no scratch.
 //
-// The epilogue works on 4 columns of a row at a time (dla::flip8x4): one
-// 16-byte load of the parked sums per block of the cluster, and 16-byte
-// plane loads, which keep enough bytes in flight at two blocks per SM.
-// Each word reads only the stream its channel selects, and of it only the
-// planes of its unprotected bits (8 - nb or 8 - ib): the same result as
-// computing both draws and selecting.  Where N, the planes or y do not
-// allow 16-byte loads and 4-byte stores, it goes word by word.
+// The epilogue works on 4 columns of a row at a time (dla::window_quads,
+// shared with qmatmul, then dla::flip8x4): one 16-byte load of the parked
+// sums per block of the cluster, and 16-byte plane loads, which keep
+// enough bytes in flight at two blocks per SM.  Each word reads only the
+// stream its channel selects, and of it only the planes of its unprotected
+// bits (8 - nb or 8 - ib): the same result as computing both draws and
+// selecting.  Where N, the planes or y do not allow 16-byte loads and
+// 4-byte stores, it goes word by word.
 //
 // Exactness.  Every partial and every total is an exact int32: |acc| <=
 // 128 * 128 * K < 2^31 for K < 2^17, which the wrapper checks, so the
@@ -72,13 +73,12 @@ struct Epilogue {
   int M, N, t, ib, nb;
   uint32_t thresh;
 
-  // y[m, n] from the complete, unsaturated sum and the channel's mask bit
-  // (loads only)
-  __device__ __forceinline__ int8_t operator()(int acc, int m, int n,
-                                               bool important) const {
-    const size_t o = (size_t)m * N + n;
-    const int u = dla::trunc8(dla::saturate24(acc), t) & 0xFF;
-    return (int8_t)dla::sext8(dla::flip8(u, (important ? rnd_imp : rnd_ord) + o,
+  // y[o] from its 8-bit word u (low byte) and its channel's mask bit, word
+  // by word
+  __device__ __forceinline__ void store1(int u, size_t o,
+                                         bool important) const {
+    y[o] = (int8_t)dla::sext8(dla::flip8(u & 0xFF,
+                                         (important ? rnd_imp : rnd_ord) + o,
                                          (size_t)M * N, thresh,
                                          important ? ib : nb));
   }
@@ -99,39 +99,28 @@ protected_mm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   dla::mma_tile<C, false>(x, w, nullptr, ep.M, ep.N, K, m0, n0, k0, k1,
                           vec_x, vec_w, acc, unused);
   const auto sl = dla::park<C, false>(acc, unused, ep.M, m0);
-  // the slice by quads of 4 columns of a row: quad q = index(j) < end / 4 is
-  // row q / (BN / 4), columns 4 (q % (BN / 4)) .. +3; 16-byte plane loads
-  // where N, the planes and y allow them, else word by word
-  constexpr int kQ = C::BN / 4;
-#pragma unroll
-  for (int j = 0; j < sl.kPer / 4; ++j) {
-    const int q = sl.index(j);
-    if (q >= sl.end / 4) break;
-    const int r = q / kQ, c = 4 * (q % kQ), m = m0 + r, n = n0 + c;
-    const int4 tot = sl.sum4(r, q % kQ);
-    const int total[4] = {tot.x, tot.y, tot.z, tot.w};
-    const size_t o = (size_t)m * ep.N + n;
+  // 16-byte plane loads and one 4-byte store of y per quad where N, the
+  // planes and y allow them, else word by word
+  dla::window_quads(sl, ep.t, [=](int r, int c, int (&u)[4]) {
+    const int n = n0 + c;
+    const size_t o = (size_t)(m0 + r) * ep.N + n;
     if (vec_p && n + 3 < ep.N) {
-      int u[4];
+      int prot[4];
       bool imp4[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        u[e] = dla::trunc8(dla::saturate24(total[e]), ep.t) & 0xFF;
         imp4[e] = important[c + e];
+        prot[e] = imp4[e] ? ep.ib : ep.nb;
       }
-      dla::flip8x4(u, imp4, ep.rnd_ord, ep.rnd_imp, o, (size_t)ep.M * ep.N,
-                   ep.thresh, ep.ib, ep.nb);
-      uint32_t packed = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) packed |= (uint32_t)(u[e] & 0xFF) << (8 * e);
-      *reinterpret_cast<uint32_t*>(ep.y + o) = packed;
+      dla::flip8x4<true>(u, prot, imp4, ep.rnd_ord, ep.rnd_imp, o,
+                         (size_t)ep.M * ep.N, ep.thresh);
+      *reinterpret_cast<uint32_t*>(ep.y + o) = dla::pack4(u);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (n + e < ep.N)
-          ep.y[o + e] = ep(total[e], m, n + e, important[c + e]);
+        if (n + e < ep.N) ep.store1(u[e], o + e, important[c + e]);
     }
-  }
+  });
   sl.done();
 }
 

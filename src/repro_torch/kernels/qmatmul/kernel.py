@@ -7,6 +7,10 @@ it is laid out across blocks and what bounds it.  It is built with ``nvcc``
 for ``sm_90a`` at first use (``repro_torch.kernels.build``) and loaded with
 ``ctypes``.
 
+The launch plan (block tile, K chunk, number of chunks) is
+``kernels/plan.py::gemm_plan``'s for the device's SM count, as for
+``protected_mm``: the launcher takes it as arguments.
+
 ``qmatmul`` takes the plain version (``ref.qmatmul_ref``) only for tensors
 that lie on the CPU; for CUDA tensors it launches the kernel or raises.
 ``qmatmul.launches`` counts the kernel's launches (one per call).
@@ -22,7 +26,8 @@ import torch
 
 from repro_torch.core import quantization as Q
 from repro_torch.kernels.build import (build_library, check_operand, launch,
-                                      load)
+                                      load, sm_count)
+from repro_torch.kernels.plan import gemm_plan
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
 SOURCES = (Path(__file__).with_name("csrc").joinpath("qmatmul.cu"),)
@@ -39,7 +44,7 @@ def build():
 @functools.cache
 def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return load("qmatmul", SOURCES, [ptr] * 3 + [i32] * 4)
+    return load("qmatmul", SOURCES, [ptr] * 3 + [i32] * 8)
 
 
 def check_gemm(kernel: str, xq, wq, t):
@@ -70,9 +75,10 @@ def qmatmul(xq, wq, t: int):
     M, K, N, t = check_gemm("qmatmul", xq, wq, t)
     if xq.device.type == "cpu":
         return qmatmul_ref(xq, wq, t)
-    y = torch.empty((M, N), dtype=torch.int8, device=xq.device)
-    launch(_lib(), "qmatmul", xq.device, xq.data_ptr(), wq.data_ptr(),
-           y.data_ptr(), M, N, K, t)
+    dev = xq.device
+    y = torch.empty((M, N), dtype=torch.int8, device=dev)
+    launch(_lib(), "qmatmul", dev, xq.data_ptr(), wq.data_ptr(), y.data_ptr(),
+           M, N, K, t, *gemm_plan(M, K, N, sm_count(dev)))
     qmatmul.launches += 1
     return y
 

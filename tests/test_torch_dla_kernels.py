@@ -17,9 +17,10 @@ backend.)
 
 The CUDA kernels themselves are held to the plain versions on the card, in
 tests/test_torch_gpu.py and chip_smoke.py.  What their design rests on is
-held here in plain math: protected_mm's GEMM adds int32 partials over the
-launch plan's K chunks (kernel.gemm_plan, the plan the launcher is given)
-and saturates only the total, which gives protected_mm_ref bitwise.
+held here in plain math: the GEMM of protected_mm and qmatmul adds int32
+partials over the launch plan's K chunks (kernel.gemm_plan, the plan the
+launcher is given) and saturates only the total, which gives
+protected_mm_ref and qmatmul_ref bitwise.
 """
 import jax
 import jax.numpy as jnp
@@ -140,6 +141,29 @@ def test_quant_linear_matches_jax():
 
 # ----------------------------------------------------------- fault_inject --
 @pytest.mark.parametrize("ber", (0.0, 1e-2, 1.0))
+def test_inject_ref_matches_pallas_at_any_protect(ber):
+    """protect -1, 0, 3, 8 and 9 mixed within every group of 4 columns (the
+    CUDA kernel's unit) at N = 130, not a multiple of 4: a negative count
+    exposes every bit, 8 or more none.  The Pallas kernel takes the whole
+    row as its block (N is not a multiple of 128)."""
+    rng = np.random.default_rng(int(ber * 100) + 7)
+    x = rng.integers(-128, 128, (16, 130)).astype(np.int32)
+    rnd = _planes(rng, 8, 16, 130)
+    prot = np.array((-1, 0, 3, 8, 9), np.int32)[np.arange(130) % 5]
+    want = np.asarray(jax_fault_inject(jnp.asarray(x), jnp.asarray(rnd),
+                                       jnp.asarray(prot), ber, bn=130))
+    tx, tp = torch.from_numpy(x), torch.from_numpy(prot)
+    got = inject_ref(tx, _t64(rnd), tp, ber)
+    _eq(got, want, f"ber={ber}")
+    _eq(fi_kernel.fault_inject(tx, prng.as_int32_bits(_t64(rnd)), tp, ber),
+        want)
+    _eq(got.numpy()[:, prot >= 8], x[:, prot >= 8])
+    if ber == 1.0:      # every bit of protect -1 and 0 flips
+        _eq((got.numpy()[:, prot <= 0] ^ x[:, prot <= 0]) & 0xFF,
+            np.full_like(x[:, prot <= 0], 0xFF))
+
+
+@pytest.mark.parametrize("ber", (0.0, 1e-2, 1.0))
 def test_inject_ref_matches_pallas(ber):
     """protect 0..8 across the columns; the planes as int64 words and as
     their int32 bit patterns give the same result.  Row 0's words are all
@@ -225,16 +249,31 @@ def _split_matmul(chunks, saturate_each=False):
     return int_matmul
 
 
+def _split_cases(rng, mm, nn, x, w):
+    """{kernel: (its launcher's module, its plain version on x and w)}:
+    protected_mm at t = 13, BER 1e-2 and a mixed mask; qmatmul at t =
+    13."""
+    args = (torch.from_numpy(x), torch.from_numpy(w),
+            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
+            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
+            torch.from_numpy((rng.random(nn) < 0.4).astype(np.int32)))
+    return {"protected_mm": (pm_kernel, lambda: protected_mm_ref(
+                *args, t=13, ber=1e-2, ib=2, nb=1)),
+            "qmatmul": (qm_kernel, lambda: qmatmul_ref(*args[:2], 13))}
+
+
+@pytest.mark.parametrize("kernel", ("protected_mm", "qmatmul"))
 @pytest.mark.parametrize("mkn", SPLIT_SHAPES)
-def test_split_k_sum_is_the_plain_version(monkeypatch, mkn):
+def test_split_k_sum_is_the_plain_version(monkeypatch, mkn, kernel):
     """The launch plan's K chunks cover K once, in 64-aligned chunks of at
-    most MAX_SPLITS; protected_mm_ref whose product is the sum of the
-    chunks' int32 partials, saturated afterwards, equals protected_mm_ref
-    bitwise (t = 13, BER 1e-2, a mixed mask).  Where a chunk is deep
+    most MAX_SPLITS; the kernel's plain version (protected_mm_ref, or
+    qmatmul_ref) whose product is the sum of the chunks' int32 partials,
+    saturated afterwards, equals it bitwise.  Where a chunk is deep
     enough, row 0 against column 0 has a first partial past 2**23 and a
     total of about 2**20, and saturating each partial gives another y."""
     m, k, n = mkn
     plan = pm_kernel.gemm_plan(m, k, n)
+    assert qm_kernel.gemm_plan(m, k, n) == plan
     chunks = plan.k_chunks(k)
     assert [c for k0, k1 in chunks for c in range(k0, k1)] == list(range(k))
     assert plan.kc % tplan.BK == 0 and len(chunks) <= tplan.MAX_SPLITS
@@ -249,17 +288,13 @@ def test_split_k_sum_is_the_plain_version(monkeypatch, mkn):
         w[plan.kc:plan.kc + 64, 0] = 0
         x0, w0 = x[0].astype(np.int64), w[:, 0].astype(np.int64)
         assert x0[:plan.kc] @ w0[:plan.kc] > 1 << 23 > abs(x0 @ w0)
-    args = (torch.from_numpy(x), torch.from_numpy(w),
-            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
-            prng.as_int32_bits(_t64(_planes(rng, 8, mm, nn))),
-            torch.from_numpy((rng.random(nn) < 0.4).astype(np.int32)))
-    kw = dict(t=13, ber=1e-2, ib=2, nb=1)
-    want = protected_mm_ref(*args, **kw)
+    plain = _split_cases(rng, mm, nn, x, w)[kernel][1]
+    want = plain()
     with monkeypatch.context() as mp:
         mp.setattr(Q, "int_matmul", _split_matmul(chunks))
-        got = protected_mm_ref(*args, **kw)
+        got = plain()
         mp.setattr(Q, "int_matmul", _split_matmul(chunks, True))
-        per_split = protected_mm_ref(*args, **kw)
+        per_split = plain()
     _eq(got, want)
     if straddles:
         assert not torch.equal(per_split, want)

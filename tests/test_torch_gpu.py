@@ -86,12 +86,13 @@ def _edges(ops):
 
 
 def _misaligned(t):
-    """A contiguous copy of ``t`` whose data starts 1 byte off a 16-byte
-    boundary (the kernels' 16-byte copies do not apply to it)."""
+    """A contiguous copy of ``t`` whose data starts one element (1 byte of
+    int8, 1 word of int32) off a 16-byte boundary (the kernels' 16-byte
+    copies do not apply to it)."""
     out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
     out = out.view(t.shape)
     out.copy_(t)
-    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
     return out
 
 
@@ -211,6 +212,11 @@ def test_fused_backend_equals_reference_and_cpu(cuda, policy_name):
 
 # ------------------------------------------- qmatmul, protected_mm, inject --
 DLA_SHAPES = ((4, 2560, 640), (37, 1000, 130), (5, 200, 130)) + EDGE_SHAPES
+# (M, K, N) of the main path's projections: prefill (M = 4 x 64) and decode
+# (M = 4) of each of danube's (K, N)
+MAIN_SHAPES = tuple((m, k, n) for k, n in ((2560, 2560), (2560, 640),
+                                           (2560, 6912), (6912, 2560))
+                    for m in (256, 4))
 # (t, ber, ib, nb): t at 0, 1 and 16; BER 0, 1e-2 and 1.0; ib and nb at 0
 # and 8 and between
 PM_EDGES = ((0, 0.0, 2, 1), (1, 1e-2, 0, 0), (16, 1e-2, 8, 8),
@@ -251,6 +257,36 @@ def test_qmatmul_matches_plain(cuda, mkn, edges):
     if edges and mkn[1] > 516:          # 127 * 127 * K > 2**23
         acc = Q.int_matmul(xq.to(torch.int32), wq.to(torch.int32))
         assert int(acc.max()) >= 1 << 23 and int(acc.min()) < -(1 << 23)
+    for t in (0, 1, 16):
+        before = qm_kernel.qmatmul.launches
+        y = qm_kernel.qmatmul(xq, wq, t)
+        torch.cuda.synchronize()
+        assert qm_kernel.qmatmul.launches == before + 1
+        assert torch.equal(y, qmatmul_ref(xq, wq, t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", (False, True))
+@pytest.mark.parametrize("mkn", ((4, 2560, 640), (17, 2561, 648)))
+def test_qmatmul_matches_plain_on_misaligned_operands(cuda, mkn, edges):
+    """xq and wq 1 byte off 16-byte alignment: the byte-load path of the
+    split-K core."""
+    xq, wq, *_ = _dla_operands(*mkn, cuda, seed=mkn[2], edges=edges)
+    xq, wq = _misaligned(xq), _misaligned(wq)
+    for t in (0, 1, 16):
+        y = qm_kernel.qmatmul(xq, wq, t)
+        torch.cuda.synchronize()
+        assert torch.equal(y, qmatmul_ref(xq, wq, t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", MAIN_SHAPES)
+def test_qmatmul_matches_plain_at_the_main_shapes(cuda, mkn):
+    """Saturating operands (both ends of the 24-bit accumulator) at the
+    main path's shapes, whose plans split K into 1 to 8 chunks."""
+    xq, wq, *_ = _dla_operands(*mkn, cuda, seed=mkn[1] + mkn[2], edges=True)
+    acc = Q.int_matmul(xq.to(torch.int32), wq.to(torch.int32))
+    assert int(acc.max()) >= 1 << 23 and int(acc.min()) < -(1 << 23)
     for t in (0, 1, 16):
         before = qm_kernel.qmatmul.launches
         y = qm_kernel.qmatmul(xq, wq, t)
@@ -305,6 +341,35 @@ def test_fault_inject_matches_plain(cuda, mkn):
         assert torch.equal(y, inject_ref(x, rnd, prot, ber)), ber
         if ber == 0.0:
             assert torch.equal(y, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misaligned", (False, True))
+@pytest.mark.parametrize("mn", ((256, 6912), (256, 640), (4, 2560),
+                                (17, 130)))
+def test_fault_inject_matches_plain_at_every_protect(cuda, mn, misaligned):
+    """protect -1, 0, 3, 8 and 9 mixed within each group of 4 columns (a
+    negative count exposes every bit, 8 or more none), on contiguous
+    operands (the 16-byte path where N allows it) and with x, the planes
+    and protect 1 word off 16-byte alignment (the word-by-word path)."""
+    m, n = mn
+    _, _, rnd, _, _ = _dla_operands(m, 1, n, cuda, seed=m + n)
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randint(-128, 128, (m, n), generator=g, device=cuda,
+                      dtype=torch.int32)
+    prot = torch.tensor((-1, 0, 3, 8, 9), dtype=torch.int32,
+                        device=cuda)[torch.arange(n, device=cuda) % 5]
+    if misaligned:
+        x, rnd, prot = _misaligned(x), _misaligned(rnd), _misaligned(prot)
+    for ber in (0.0, 1e-2, 1.0):
+        before = fi_kernel.fault_inject.launches
+        y = fi_kernel.fault_inject(x, rnd, prot, ber)
+        torch.cuda.synchronize()
+        assert fi_kernel.fault_inject.launches == before + 1
+        assert torch.equal(y, inject_ref(x, rnd, prot, ber)), ber
+        if ber == 1.0:      # prot -1 and 0 flip every bit but in row 0
+            assert torch.equal((y[1:, :2] ^ x[1:, :2]) & 0xFF,
+                               torch.full_like(x[1:, :2], 0xFF))
 
 
 @pytest.mark.gpu
