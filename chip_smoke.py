@@ -43,18 +43,34 @@ its last line:
      first projection: protected_mm launched once per projection of every
      step, its device time, and a second generation in which every launch
      is held bitwise to protected_mm_ref, with the same tokens;
-  8. faults: protect_linear fused equals reference on the card, for all 7
+  8. scheduler: the same model, all 24 layers, through the continuous-
+     batching Scheduler (4 slots, buckets 32/64, paged KV cache of 16-token
+     blocks, 4 decode steps per round trip) serving 8 requests of 9-64
+     prompt and 4-16 new tokens under crt3 at BER 1e-4 on the fused
+     backend: fused_decode at prefill (B = 1, global t) and at decode (per-
+     request keys, per-row t), launched 7 x 24 times per prefill call and
+     per decode step, its device time by prefill and decode; every request's
+     tokens equal the reference backend's; one request alone gives the
+     tokens it gave in the crowd; the kernel phase also checks and times
+     the scheduler's shapes (M = 32 and 64 global, M = 4 per-row);
+  9. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
-     engine on both backends equals the CPU's;
-  9. a ``kernels`` JSON line (per kernel: its launches and device time on
+     engine on both backends equals the CPU's; the reduced Scheduler on the
+     card, paged and dense, emits the CPU's tokens clean and at temperature
+     0.8; under crt1 at BER 1e-2 with per-row weight faults every protected
+     projection of its fused run equals the CPU's on the same operands, and
+     its reference backend and dense layout give the fused run's tokens;
+ 10. a ``kernels`` JSON line (per kernel: its launches and device time on
      its path, and the kernel phase's sums of kernel, bound, plain and
-     ``_int_mm`` times, with ``bound_share`` = bound / kernel time), then the
+     ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
+     fused_decode's also the same for its scheduler run), then the
      last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import functools
 import json
@@ -70,6 +86,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core peak, same source
 B, PROMPT, NEW = 4, 64, 16
+# the scheduler phase: 8 requests through 4 slots over a paged KV cache
+SCHED = dict(max_batch=4, buckets=(32, 64), max_new_tokens=16,
+             decode_chunk=4, kv="paged", block_size=16)
+N_REQUESTS = 8
 # (K, N) of the seven projections of one danube layer: wq wk wv wo wi wg wo
 LAYER_KN = ((2560, 2560), (2560, 640), (2560, 640), (2560, 2560),
             (2560, 6912), (2560, 6912), (6912, 2560))
@@ -156,6 +176,15 @@ def launches_per_generation():
         per_gen[(PROMPT * B,) + kn] = per_gen.get((PROMPT * B,) + kn, 0) + 24
         per_gen[(B,) + kn] = per_gen.get((B,) + kn, 0) + 24 * NEW
     return per_gen
+
+
+def scheduler_shapes():
+    """The (M, K, N) of the scheduler phase's fused_decode launches, with
+    their mode: prefill at M = each bucket (B = 1, global t), decode at
+    M = max_batch (per-row t)."""
+    kns = sorted(set(LAYER_KN))
+    return ([((b, k, n), False) for b in SCHED["buckets"] for k, n in kns]
+            + [((SCHED["max_batch"], k, n), True) for k, n in kns])
 
 
 def unprotected_planes(M, prot):
@@ -356,8 +385,34 @@ def phase_kernels(torch):
         max_err = max(max_err, _check_modes(torch, g, _edges(ops),
                                             (0, 12, 20)))
         del ops
+    sched_rows = []
+    for (M, K, N), per_row in scheduler_shapes():
+        ops = _operands(torch, g, dev, M, K, N)
+        max_err = max(max_err, _check_modes(torch, g, ops, (3,)),
+                      _check_modes(torch, g, _edges(ops), (0, 12, 20)))
+        qs = torch.tensor([3], dtype=torch.int32, device=dev)
+        args = (ops["xq"], ops["wq"], ops["oflips"], qs)
+        Mp = max(M, 24)
+        xpad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
+        xpad[:M] = ops["xq"]
+        b_ms, b_by = bound(M, K, N, (per_row, "none", False))
+        row = dict(shape=[M, K, N], path="scheduler",
+                   mode=("per-row t" if per_row else "global t")
+                   + ", no DPPU",
+                   kernel_ms=cuda_ms(torch, functools.partial(
+                       kernel.fused_decode, *args, per_row=per_row), 20),
+                   bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=cuda_ms(torch, functools.partial(
+                       fused_ref, *args[:3], qs.reshape(()),
+                       per_row=per_row), 5),
+                   library_ms=cuda_ms(torch, functools.partial(
+                       torch._int_mm, xpad, ops["wq"]), 20))
+        row["bound_share"] = b_ms / row["kernel_ms"]
+        sched_rows.append(row)
+        emit({"phase": "kernel", "kernel": "fused_decode", **row})
+        del ops
     torch.cuda.synchronize()
-    return rows, max_err
+    return rows, sched_rows, max_err
 
 
 # ------------------------------------------------ qmatmul, protected_mm, inject
@@ -615,6 +670,7 @@ class LaunchTimer:
     def __init__(self, torch, lib, kernel):
         self.torch, self.lib, self.events = torch, lib, []
         self.launch_name = f"{kernel}_launch"
+        self.tag = None                 # recorded with each launch's events
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
@@ -627,13 +683,18 @@ class LaunchTimer:
             start.record()
             err = fn(*args)
             end.record()
-            self.events.append((start, end))
+            self.events.append((self.tag, start, end))
             return err
         return timed
 
-    def ms(self):
+    def ms(self, tag=None):
+        """Device ms of the recorded launches, or of those under ``tag``."""
         self.torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events)
+        return sum(s.elapsed_time(e) for t, s, e in self.events
+                   if tag is None or t == tag)
+
+    def count(self, tag):
+        return sum(t == tag for t, _, _ in self.events)
 
 
 def full_model(torch):
@@ -829,6 +890,136 @@ def phase_pallas_engine(torch, m):
     return launches, kernel_ms
 
 
+def scheduler_workload(vocab):
+    """(rid, prompt, max_new_tokens) of the scheduler phase's requests:
+    prompt lengths 9-64 (both buckets) and 4-16 new tokens, from a seed, so
+    that slots are admitted, evicted and refilled."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    lens = rng.integers(9, 65, N_REQUESTS)
+    news = rng.integers(4, 17, N_REQUESTS)
+    return [(rid, [int(t) for t in rng.integers(0, vocab, n)], int(k))
+            for rid, (n, k) in enumerate(zip(lens, news))]
+
+
+def phase_scheduler(torch, m):
+    """Full-width danube through the continuous-batching Scheduler on the
+    fused backend: fused_decode at prefill (B = 1, global t) and at decode
+    (the (B, 2) per-request keys: per-row t), its launches counted and timed;
+    the same requests on the reference backend give the same tokens, and one
+    request served alone gives the tokens it gave in the crowd."""
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg, model, params, policy = (m[k] for k in (
+        "cfg", "model", "params", "policy"))
+    spec = scheduler_workload(cfg.vocab)
+
+    def requests(rids=None):
+        return [Request(rid=r, tokens=list(t), max_new_tokens=k)
+                for r, t, k in spec if rids is None or r in rids]
+    scfg = SchedulerConfig(**SCHED)
+    scheds = {b: Scheduler(model, params, scfg, policy=policy, ft_backend=b)
+              for b in ("fused", "reference")}
+    fused = scheds["fused"]
+
+    torch.cuda.reset_peak_memory_stats()
+    timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+    real_lib = kernel._lib
+    kernel._lib = lambda: timer
+
+    host_s = {"prefill": 0.0, "decode": 0.0}
+
+    def tagged(fn, tag):
+        # both calls end on a host read of their tokens, so the host clock
+        # around them holds their device work
+        def run(*args, **kw):
+            timer.tag = tag
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host_s[tag] += time.perf_counter() - t0
+            return out
+        return run
+    fused._prefill_one = tagged(fused._prefill_one, "prefill")
+    fused._chunk = tagged(fused._chunk, "decode")
+    kernel.fused_decode.launches = 0        # the path's run starts here
+    t0 = time.perf_counter()
+    out = fused.run(requests())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel.fused_decode.launches  # ... and ends here
+    kernel._lib = real_lib
+    del fused._prefill_one, fused._chunk
+    peak = torch.cuda.max_memory_allocated()
+    st = fused.stats
+    kernel_ms = {tag: timer.ms(tag) for tag in ("prefill", "decode")}
+    want = 7 * cfg.n_layers * (st.prefill_calls
+                               + SCHED["decode_chunk"] * st.chunk_calls)
+    if launches != want or len(timer.events) != launches:
+        raise AssertionError(f"fused_decode launched {launches} times "
+                             f"({len(timer.events)} timed) on the scheduler "
+                             f"path, expected {want}")
+    for r, _, k in spec:
+        got = out[r]
+        if got.finish_reason != "length" or len(got.generated) != k:
+            raise AssertionError(f"request {r}: {got.finish_reason}, "
+                                 f"{len(got.generated)} of {k} tokens")
+        if not all(0 <= t < cfg.vocab for t in got.generated):
+            raise AssertionError(f"request {r}: bad tokens {got.generated}")
+    if st.blocks_in_use_peak > fused.n_blocks - 1:
+        raise AssertionError(f"blocks_in_use_peak {st.blocks_in_use_peak} "
+                             f"of {fused.n_blocks - 1}")
+    if st.prefill_calls != N_REQUESTS or st.retire_calls != N_REQUESTS:
+        raise AssertionError(f"stats {st}")
+
+    t0 = time.perf_counter()
+    ref = scheds["reference"].run(requests())
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    if kernel.fused_decode.launches != launches:
+        raise AssertionError("the reference backend launched the kernel")
+    for r, _, _ in spec:
+        if ref[r].generated != out[r].generated:
+            raise AssertionError(
+                f"request {r}: fused tokens {out[r].generated} differ from "
+                f"reference tokens {ref[r].generated}")
+    # alone: the shortest request admitted into a refilled slot
+    lone = min((s for s in spec if s[0] >= SCHED["max_batch"]),
+               key=lambda s: s[2])[0]
+    t0 = time.perf_counter()
+    alone = fused.run(requests({lone}))
+    alone_s = time.perf_counter() - t0
+    if alone[lone].generated != out[lone].generated:
+        raise AssertionError(
+            f"request {lone} alone gave {alone[lone].generated}, in the "
+            f"crowd {out[lone].generated}")
+    tokens = sum(len(r.generated) for r in out.values())
+    emit({"phase": "scheduler", "backend": "fused", "arch": cfg.name,
+          "layers": cfg.n_layers, "policy": "crt3", "ber": 1e-4,
+          "config": SCHED, "requests": N_REQUESTS,
+          "prompt_lens": [len(t) for _, t, _ in spec],
+          "max_new_tokens": [k for _, _, k in spec],
+          "tokens": tokens, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+          "prefill_calls_s": host_s["prefill"],
+          "chunk_calls_s": host_s["decode"],
+          "prefill_calls": st.prefill_calls, "insert_calls": st.insert_calls,
+          "chunk_calls": st.chunk_calls, "retire_calls": st.retire_calls,
+          "roundtrips": st.roundtrips,
+          "blocks_in_use_peak": st.blocks_in_use_peak,
+          "n_blocks": fused.n_blocks, "launches": launches,
+          "prefill_launches": timer.count("prefill"),
+          "decode_launches": timer.count("decode"),
+          "fused_decode_ms": kernel_ms["prefill"] + kernel_ms["decode"],
+          "fused_decode_prefill_ms": kernel_ms["prefill"],
+          "fused_decode_decode_ms": kernel_ms["decode"],
+          "max_memory_allocated_bytes": peak,
+          "reference_wall_s": ref_s, "tokens_equal": True,
+          "alone_rid": lone, "alone_wall_s": alone_s,
+          "alone_equals_crowded": True, "tokens_rid0": out[0].generated})
+    buckets = [fused._bucket(len(t)) for _, t, _ in spec]
+    return dict(launches=launches, ms=timer.ms(), buckets=buckets,
+                decode_steps=SCHED["decode_chunk"] * st.chunk_calls)
+
+
 def plane_cost(torch):
     """Device ms of one decode step's plane draws (2 streams x 8 planes per
     projection, 7 projections x 24 layers): over the output padded to 128
@@ -986,9 +1177,72 @@ def phase_faults(torch):
     _, logits = model.prefill(params, batch)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits")
+    cpu_params = _to(params, "cpu")
+    sched_cases = 0
+    for label, kw in (("clean", {}), ("temperature 0.8",
+                                      dict(temperature=0.8))):
+        want = _reduced_scheduler(model, cpu_params, "reference", **kw)
+        for kv in ("paged", "dense"):
+            got = _reduced_scheduler(model, params, "reference", kv=kv, **kw)
+            if got != want:
+                raise AssertionError(
+                    f"reduced scheduler, {label}, {kv}: the card's tokens "
+                    f"differ from the CPU's paged ones:\n{got}\n{want}")
+            sched_cases += 1
+    # under faults the card's and the CPU's float ops (last-place
+    # differences) may round an activation to another int8, so the card's
+    # fused run is held to the CPU projection by projection, on the card's
+    # operands, and to its own reference backend and dense layout
+    pol = ft.get_policy("crt1", ber=1e-2, weight_faults=True)
+    real = ft.protect_linear
+    n_proj = 0
+
+    def checked_linear(key, x, w, policy, important=None, **kw):
+        nonlocal n_proj
+        y = real(key, x, w, policy, important, **kw)
+        want = real(key.cpu(), x.cpu(), w.cpu(), policy,
+                    None if important is None else important.cpu(),
+                    **dict(kw, backend="reference"))
+        if not torch.equal(y.cpu(), want):
+            raise AssertionError(f"reduced scheduler projection {n_proj} "
+                                 f"{tuple(x.shape)} differs from the CPU")
+        n_proj += 1
+        return y
+    ft.protect_linear = checked_linear
+    try:
+        base = _reduced_scheduler(model, params, "fused", pol)
+    finally:
+        ft.protect_linear = real
+    for backend, kv in (("reference", "paged"), ("fused", "dense")):
+        got = _reduced_scheduler(model, params, backend, pol, kv)
+        if got != base:
+            raise AssertionError(
+                f"reduced scheduler under crt1 with weight faults: {backend} "
+                f"{kv} differs from fused paged:\n{got}\n{base}")
     emit({"phase": "faults", "protect_linear_cases": checked,
           "pallas_cases": n_pallas, "reduced_engine_tokens_equal": True,
-          "reduced_pallas_engine_equals_cpu": True})
+          "reduced_pallas_engine_equals_cpu": True,
+          "reduced_scheduler_clean_cases_equal_to_cpu": sched_cases,
+          "reduced_scheduler_projections_equal_to_cpu": n_proj,
+          "reduced_scheduler_faulty_backends_and_layouts_equal": True})
+
+
+def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
+                       temperature=0.0):
+    """The reduced model through the Scheduler: 5 requests on 2 slots, two
+    buckets, a block size that splits the window.  {rid: tokens}."""
+    import numpy as np
+
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    rng = np.random.default_rng(31)
+    reqs = [Request(rid=i, tokens=[int(t) for t in rng.integers(
+                0, model.cfg.vocab, 3 + 3 * (i % 3))], max_new_tokens=4 + i % 3)
+            for i in range(5)]
+    sched = Scheduler(model, params, SchedulerConfig(
+        max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
+        kv=kv, block_size=4, temperature=temperature), policy=policy,
+        ft_backend=backend)
+    return {rid: r.generated for rid, r in sched.run(reqs).items()}
 
 
 def _totals(rows, weight):
@@ -1008,8 +1262,10 @@ def _totals(rows, weight):
                 bound_share=total("bound_ms") / total("kernel_ms"))
 
 
-def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
-    """One entry for each of the port's four kernels."""
+def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
+                 sched):
+    """One entry for each of the port's four kernels; fused_decode's also
+    holds its scheduler path's run."""
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
@@ -1018,12 +1274,30 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound):
            "bound_ms, library_ms and kernel_phase_ms from the kernel "
            "phase's per-shape times x launches; bound_share = bound_ms / "
            "kernel_phase_ms")
-    rows, err, launches, ms = fused
+    rows, sched_rows, err, launches, ms = fused
     out = [dict(name="fused_decode", source=src.format("fused_decode"),
                 replaces=rep.format("fused_decode", 189), launches=launches,
                 max_abs_err=err, ms=ms,
                 **_totals(rows, lambda r: r["launches_per_generation"]),
                 per=gen + ", fused backend", **common)]
+    n_layers = 24
+    n_prefill = collections.Counter(sched["buckets"])
+    kn_count = collections.Counter(LAYER_KN)
+
+    def sched_launches(r):
+        M, K, N = r["shape"]
+        per = sched["decode_steps"] if M == SCHED["max_batch"] \
+            else n_prefill[M]
+        return n_layers * kn_count[(K, N)] * per
+    tot = _totals(sched_rows, sched_launches)
+    out[0].update(
+        scheduler_launches=sched["launches"], scheduler_ms=sched["ms"],
+        **{f"scheduler_{k}": v for k, v in tot.items()},
+        scheduler_per=("the scheduler phase's run (8 requests, prefill at "
+                       "B=1 per bucket with global t, decode at B=4 with "
+                       "per-row t): ms from CUDA events around each launch; "
+                       "plain, bound, library and kernel-phase sums from "
+                       "the kernel phase's scheduler rows x launches"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
@@ -1065,17 +1339,19 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
     phase_build()
-    rows, max_err = phase_kernels(torch)
+    rows, sched_rows, max_err = phase_kernels(torch)
     dla, dla_err = phase_dla_kernels(torch)
     entry, entry_bound = phase_entry_points(torch)
     m = full_model(torch)
     launches, kernel_ms = phase_engine(torch, m)
     pallas = phase_pallas_engine(torch, m)
+    sched = phase_scheduler(torch, m)
     del m
     torch.cuda.empty_cache()
     phase_faults(torch)
-    emit(kernels_line(name, smi, (rows, max_err, launches, kernel_ms), dla,
-                      dla_err, pallas, entry, entry_bound))
+    emit(kernels_line(name, smi, (rows, sched_rows, max_err, launches,
+                                  kernel_ms), dla, dla_err, pallas, entry,
+                      entry_bound, sched))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

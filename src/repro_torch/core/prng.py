@@ -14,8 +14,12 @@ carries its own copy of the generator, bit for bit:
     (jax ``_threefry_fold_in``);
   * ``bits(key, shape)``: ``bits1 ^ bits2`` over the counters
     ``(0, flat_index)`` (jax ``_threefry_random_bits_partitionable``);
-  * ``uniform``: ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus 1;
-  * ``bernoulli(key, p, shape)``: ``uniform(key, shape) < float32(p)``.
+  * ``uniform``: ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus 1,
+    then scaled to ``[minval, maxval)`` (jax ``_uniform``);
+  * ``bernoulli(key, p, shape)``: ``uniform(key, shape) < float32(p)``;
+  * ``gumbel``: ``-log(-log(uniform(key, shape, tiny, 1)))`` (jax's "low"
+    mode), and ``categorical``: the argmax of gumbel noise plus logits (jax's
+    ``replace=True`` branch).
 
 Every function accepts a batch of keys ``(..., 2)`` and maps over its leading
 dimensions, which is what ``jax.vmap`` over a key batch computes.
@@ -82,10 +86,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` is taken as uint32 (site ids from
-    ``crc32`` reach ``2**32 - 1``)."""
-    d = int(data) & MASK32
-    zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    o1, o2 = threefry2x32(key[..., 0], key[..., 1], zero, zero + d)
+    ``crc32`` reach ``2**32 - 1``).  ``data`` may be an int or an int tensor,
+    which broadcasts against the key batch: ``fold_in(key, ids)`` with one
+    key and a (B,) vector is ``vmap(fold_in, (None, 0))``, and with a (B, 2)
+    key batch it folds row by row."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & MASK32
+    else:       # a fill, not a host-to-device copy, which would sync
+        d = torch.full((), int(data) & MASK32, dtype=torch.int64,
+                       device=key.device)
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([o1, o2], dim=-1)
 
 
@@ -108,12 +118,38 @@ def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)``: the top 23 bits of each
-    word as a mantissa under exponent 0, minus 1."""
+def uniform(key: torch.Tensor, shape, minval=0., maxval=1.) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top 23
+    bits of each word as a mantissa under exponent 0, minus 1, then
+    ``max(minval, floats * (maxval - minval) + minval)`` in float32.  At the
+    default range that expression is the identity, so it is skipped."""
     words = bits(key, shape)
     f = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    floats = f - 1.0
+    if minval == 0. and maxval == 1.:
+        return floats
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """float32 ``a * b + c`` rounded once, as the compiled reference computes
+    it (XLA contracts the expression into a fused multiply-add).  The product
+    of two float32 values is exact in float64; the float64 sum ``y`` is
+    rounded, so where ``y`` lands on a float32 midpoint its rounding error
+    ``err`` (TwoSum) decides the tie."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    y = p + c
+    cc = y - p
+    err = (p - (y - cc)) + (c - cc)
+    r = y.to(torch.float32)
+    r64 = r.to(torch.float64)
+    n = torch.nextafter(r, torch.where(y > r64, torch.inf, -torch.inf)
+                        .to(torch.float32))
+    tie = ((r64 + n.to(torch.float64)) * 0.5 == y) & (err != 0)
+    return torch.where(tie & ((err > 0) == (n > r)), n, r)
 
 
 def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
@@ -122,3 +158,20 @@ def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     if not isinstance(p, torch.Tensor):
         p = torch.tensor(p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < p
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low" mode:
+    ``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)``."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis (the Gumbel
+    max trick).  ``key`` is one key for the whole ``logits`` tensor, or a
+    batch of keys ``(..., 2)`` whose leading dims are those of ``logits``
+    but the last: one key per row, as ``vmap`` over rows computes.
+    Returns int64 indices."""
+    noise = gumbel(key, logits.shape[key.dim() - 1:])
+    return torch.argmax(noise + logits, dim=-1)

@@ -5,7 +5,10 @@ Counterpart of ``repro.models.attention``: prefill attention (one block of
 full scores for short sequences, the chunked online softmax otherwise, which
 never holds an (S x S) score tensor and skips kv blocks outside the causal
 window) and the dense decode path.  Both are plain torch ops, as the
-reference's are XLA ops.  The paged decode path comes with the scheduler.
+reference's are XLA ops.  Decode runs on either cache layout: the dense one
+(a row of slots per batch row) and the paged one of the continuous-batching
+scheduler (``init_paged_cache``: a shared block pool addressed through a
+per-row block table).
 
 The decode step writes the new token into the cache in place (the reference
 donates its cache buffers, so it too reuses them); callers hand the caches
@@ -126,10 +129,30 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
     q = rope(q, positions, cfg.rope_theta)
     q = (q * _scale(cfg)).to(x.dtype)
 
-    if mode == "decode":
-        if "bt" in cache:
-            raise NotImplementedError("the paged KV cache comes with the "
-                                      "scheduler (ROADMAP.md)")
+    if mode == "decode" and "bt" in cache:
+        # paged: the row's logical slot maps through its block table to a
+        # physical row of the shared pool.  Rows whose table points at the
+        # trash block 0 (idle or evicted slots) write where nobody reads.
+        pool_k, pool_v, bt = cache["k"], cache["v"], cache["bt"]
+        P, bs = pool_k.shape[0], pool_k.shape[1]
+        B, eff_cap = bt.shape[0], bt.shape[1] * bs
+        pos = positions[:, 0]                                    # (B,)
+        slot = pos % window if window else torch.clamp(pos, max=eff_cap - 1)
+        rows = torch.arange(B, device=x.device)
+        fi = bt[rows, slot // bs].long() * bs + slot % bs        # (B,)
+        kp = pool_k.view(P * bs, KH, Dh)
+        vp = pool_v.view(P * bs, KH, Dh)
+        kp[fi] = k[:, 0].to(kp.dtype)
+        vp[fi] = v[:, 0].to(vp.dtype)
+        new_cache = {"k": pool_k, "v": pool_v, "bt": bt}
+        # gather each row's blocks back into slot order and run the dense
+        # layout's count-masked attention
+        flat = (bt.long()[:, :, None] * bs + torch.arange(
+            bs, device=x.device)).reshape(B, eff_cap)
+        n_valid = torch.clamp(pos + 1, max=window if window else eff_cap)
+        o = _decode_attn(q, kp[flat], vp[flat], n_valid,
+                         cap=cfg.attn_softcap)
+    elif mode == "decode":
         kc, vc = cache["k"], cache["v"]
         cap_len = kc.shape[1]
         pos = positions[:, 0]                                    # (B,)
@@ -192,3 +215,21 @@ def init_cache(cfg, kind, batch, cap_len, dtype, device):
     shp = (batch, C, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def init_paged_cache(cfg, kind, batch, cap_len, block_size, n_blocks, dtype,
+                     device):
+    """Paged cache of one attention layer: a pool of ``n_blocks`` physical
+    blocks of ``block_size`` token slots, and a ``(batch, width)`` block
+    table mapping each row's logical slots to blocks.  Block 0 is the trash
+    block: every entry starts there, and evicted rows are pointed back at
+    it.  Rolling (window) layers keep the dense layout's slot map (position
+    p at slot p % window), block-indexed; their table is window-sized."""
+    window = cfg.window if kind == "L" else 0
+    cap = window if window else cap_len
+    width = -(-cap // block_size)
+    shp = (n_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device),
+            "bt": torch.zeros((batch, width), dtype=torch.int32,
+                              device=device)}

@@ -27,10 +27,13 @@ class Model:
         return T.init_params(generator, self.cfg, self.run,
                              _device.resolve(device))
 
-    def prefill(self, params, batch, max_len: int | None = None, ftc=None):
+    def prefill(self, params, batch, max_len: int | None = None, ftc=None,
+                last_index=None):
         """Forward over a prompt, building the caches.  ``max_len`` reserves
         decode room in full-attention caches; rolling (window) caches keep
-        their fixed capacity.  Returns (caches, last_token_logits)."""
+        their fixed capacity.  ``last_index`` (B,) takes each row's logits at
+        its last real token of a right-padded prompt.  Returns (caches,
+        last_token_logits)."""
         cfg, run = self.cfg, self.run
         x, _, _ = T.assemble_inputs(params, cfg, batch)
         h, caches = T.backbone(params, x, cfg=cfg, run=run, mode="prefill",
@@ -44,7 +47,7 @@ class Model:
                     caches[lid]["attn"] = {
                         n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
                         for n, c in caches[lid]["attn"].items()}
-        return caches, T.last_logits(params, cfg, h)
+        return caches, T.last_logits(params, cfg, h, last_index)
 
     def decode_step(self, params, caches, token, pos, ftc=None):
         """One-token decode.  token: (B,) int; pos: an int shared by the
@@ -62,12 +65,23 @@ class Model:
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         return new_caches, T.last_logits(params, cfg, h)
 
-    def init_cache(self, batch: int, seq_len: int, device=None):
-        """Zero caches for decoding at context length ``seq_len``."""
+    def init_cache(self, batch: int, seq_len: int, device=None, *,
+                   paged=None):
+        """Zero caches for decoding at context length ``seq_len``.
+        ``paged=(block_size, n_blocks)`` gives every attention layer the
+        paged layout (``attention.init_paged_cache``).  One ``l{i}`` entry
+        per layer whatever the config (the reference stacks scanned
+        segments)."""
         dev = _device.resolve(device)
         dtype = dtype_of(self.run.compute_dtype)
-        return {f"l{i}": {"attn": attention.init_cache(
-                    self.cfg, kind, batch, seq_len, dtype, dev)}
+
+        def layer(kind):
+            if paged is None:
+                return attention.init_cache(self.cfg, kind, batch, seq_len,
+                                            dtype, dev)
+            return attention.init_paged_cache(self.cfg, kind, batch, seq_len,
+                                              *paged, dtype, dev)
+        return {f"l{i}": {"attn": layer(kind)}
                 for i, kind in enumerate(T.layer_kinds(self.cfg))}
 
 

@@ -125,8 +125,12 @@ def assemble_inputs(params, cfg, batch):
     return x, labels, torch.ones_like(labels, dtype=torch.bool)
 
 
-def last_logits(params, cfg, h):
-    """float32 logits at the last position."""
+def last_logits(params, cfg, h, index=None):
+    """float32 logits at the last position, or, for right-padded (bucketed)
+    prompts, at a per-row ``index`` (B,) of the last real token."""
     emb = params.get("unembed", params["embed"])
-    logits = h[:, -1].to(torch.float32) @ emb.to(torch.float32).T
+    hl = h[:, -1] if index is None else h[
+        torch.arange(h.shape[0], device=h.device),
+        torch.as_tensor(index, device=h.device).long()]
+    logits = hl.to(torch.float32) @ emb.to(torch.float32).T
     return softcap(logits, cfg.logit_softcap)

@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill, then greedy decode one token per step.
+"""Batched serving engine: prefill, then decode one token per step, greedy
+or at a temperature.
 
 Counterpart of ``repro.serve.engine`` with ``loop="python"``: one prefill
 and one decode step per new token, so a generation costs ``1 + n_new`` host
@@ -11,12 +12,14 @@ calibrated truncation LSBs ``ft_t``.
 The key schedule is the reference's, so the port draws the same faults:
 ``_call_key`` folds the call index into the config seed (unless a key or
 seed pins the call) and splits it into ``ftkey`` and ``skey``; prefill draws
-from ``ftkey``, decode step ``i`` from ``fold_in(ftkey, i + 1)``, and the
-sampling key folds ``i`` in per step.
+from ``ftkey``, decode step ``i`` from ``fold_in(ftkey, i + 1)``.  At a
+temperature above 0 the first token is ``categorical(skey, logits / T)``
+with one key for the whole batch, and ``skey = fold_in(skey, i)`` before
+step ``i``'s sample (``repro_torch.core.prng.categorical``, jax's Gumbel max
+on the port's threefry).
 
 Not ported yet (ROADMAP.md): ``loop="scan"``, whose torch counterpart is a
-CUDA-graph capture of the decode step; temperature sampling (jax's
-``categorical``); device meshes.
+CUDA-graph capture of the decode step; device meshes.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.core import prng
 
-LOOPS = ("python",)
+LOOPS = ("python",)           # "scan" is not ported (ROADMAP.md)
 
 
 @dataclasses.dataclass
@@ -65,10 +68,6 @@ class Engine:
                 "graph of the decode step, is queued in ROADMAP.md")
         if self.loop not in LOOPS:
             raise ValueError(f"unknown loop {self.loop!r}; expected {LOOPS}")
-        if self.cfg.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling (jax.random.categorical) is not "
-                "ported: the engine serves temperature 0 (ROADMAP.md)")
         self.policy = as_policy(policy)
         self.ft_backend = ft_backend
         self.ft_t = ft_t
@@ -83,9 +82,15 @@ class Engine:
         return FTCtx(self.policy, ftkey, backend=self.ft_backend,
                      t=self.ft_t)
 
-    @staticmethod
-    def _sample(logits):
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    def _sample(self, logits, key):
+        temperature = self.cfg.temperature
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # a true division, as the reference's eager one: a CUDA tensor
+        # divided by a Python number is multiplied by its reciprocal
+        t = torch.full((), temperature, dtype=torch.float32,
+                       device=logits.device)
+        return prng.categorical(key, logits / t).to(torch.int32)
 
     # ------------------------------------------------------------ keys -----
     def _call_key(self, key, seed):
@@ -117,7 +122,7 @@ class Engine:
         caches, logits = self.model.prefill(self.params, batch,
                                             max_len=prompt_len + n_new,
                                             ftc=self._ftc(ftkey))
-        tok = self._sample(logits)
+        tok = self._sample(logits, skey)
         if n_new == 0:                       # prefill-only probe
             self.stats = ServeStats(roundtrips=1, tokens=0)
             return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
@@ -129,7 +134,7 @@ class Engine:
                 self.params, caches, tok, prompt_len + i,
                 ftc=self._ftc(prng.fold_in(ftkey, i + 1)))
             skey = prng.fold_in(skey, i)     # the reference's sampling stream
-            tok = self._sample(logits)
+            tok = self._sample(logits, skey)
         out = torch.stack(out, dim=1)
         self.stats = ServeStats(roundtrips=1 + n_new, tokens=out.numel())
         return out

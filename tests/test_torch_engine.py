@@ -199,8 +199,6 @@ def test_engine_refuses_what_is_not_ported():
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="CUDA graph"):
         tengine.Engine(tm, tp, loop="scan")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        tengine.Engine(tm, tp, cfg=tengine.ServeConfig(temperature=0.7))
     out = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(
         max_new_tokens=0)).generate({"tokens": torch.zeros(
             (1, 4), dtype=torch.long)})

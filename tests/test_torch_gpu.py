@@ -418,3 +418,123 @@ def test_pallas_backend_equals_cpu(cuda, policy_name):
                                     pol, imp.to(cuda), backend="pallas", t=t,
                                     layer_protected=lp)
             assert torch.equal(got.cpu(), want), (t, lp)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _reduced_scheduler_run(dev, params, backend, kv, temperature=0.0):
+    """Reduced danube (float32) through the Scheduler: 5 requests on 2
+    slots, crt1 at BER 1e-2 with per-row weight faults (none at a
+    temperature).  Returns ({rid: (tokens, finish_reason)}, SchedStats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    model = build(cfg, RunConfig(param_dtype="float32",
+                                 compute_dtype="float32"))
+    rng = np.random.default_rng(30)
+    reqs = [Request(rid=i, tokens=[int(t) for t in rng.integers(
+                0, cfg.vocab, 3 + 3 * (i % 3))], max_new_tokens=4 + i % 3)
+            for i in range(5)]
+    pol = (None if temperature else
+           ft.get_policy("crt1", ber=1e-2, weight_faults=True))
+    sched = Scheduler(model, _to(params, dev), SchedulerConfig(
+        max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
+        kv=kv, block_size=4, temperature=temperature), policy=pol,
+        ft_backend=backend)
+    out = sched.run(reqs)
+    return ({rid: (r.generated, r.finish_reason) for rid, r in out.items()},
+            sched.stats)
+
+
+def _reduced_params():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    model = build(get_config("h2o-danube-1.8b", reduced=True),
+                  RunConfig(param_dtype="float32", compute_dtype="float32"))
+    return model.init(torch.Generator().manual_seed(11), device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,kv", (("fused", "paged"),
+                                        ("reference", "dense"),
+                                        ("fused", "dense")))
+def test_scheduler_backends_and_layouts_agree_on_the_card(cuda, backend, kv):
+    """Under per-row weight faults on the card, fused (fused_decode per row
+    at decode, global at prefill) = reference, and dense = paged, per
+    request, on the same float operands."""
+    params = _reduced_params()
+    want, _ = _reduced_scheduler_run(cuda, params, "reference", "paged")
+    assert _reduced_scheduler_run(cuda, params, backend, kv)[0] == want
+
+
+@pytest.mark.gpu
+def test_scheduler_projections_equal_cpu(cuda, monkeypatch):
+    """Every protected projection of the fused Scheduler run on the card
+    (7 per layer, per prefill call and per decode step) equals the CPU's
+    reference backend on the same operands, bitwise: the keys, flip words
+    and integer datapath of both modes.  (Whole-run tokens are held across
+    devices only clean: the card's and the CPU's float ops, rms_norm first,
+    differ in the last place, and a quantization rounding that lands on .5
+    turns that into a different int8 operand.)"""
+    import repro_torch.ft as ftmod
+    real = ftmod.protect_linear
+    n = 0
+
+    def checked(key, x, w, policy, important=None, **kw):
+        nonlocal n
+        y = real(key, x, w, policy, important, **kw)
+        want = real(key.cpu(), x.cpu(), w.cpu(), policy,
+                    None if important is None else important.cpu(),
+                    **dict(kw, backend="reference"))
+        assert torch.equal(y.cpu(), want), (n, tuple(x.shape), key.shape)
+        n += 1
+        return y
+    monkeypatch.setattr(ftmod, "protect_linear", checked)
+    _, stats = _reduced_scheduler_run(cuda, _reduced_params(), "fused",
+                                      "paged")
+    assert n == 7 * 2 * (stats.prefill_calls + 3 * stats.chunk_calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ("paged", "dense"))
+@pytest.mark.parametrize("temperature", (0.0, 0.8))
+def test_clean_scheduler_equals_cpu(cuda, kv, temperature):
+    """Clean, the card's tokens are the CPU's at temperature 0 and 0.8 (the
+    per-row sampling keys; logits agree to float rounding)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    model = build(cfg, RunConfig(param_dtype="float32",
+                                 compute_dtype="float32"))
+    params = _reduced_params()
+    rng = np.random.default_rng(32)
+    spec = [(i, [int(t) for t in rng.integers(0, cfg.vocab, 3 + 3 * (i % 3))],
+             4 + i % 3) for i in range(5)]
+
+    def run(dev):
+        sched = Scheduler(model, _to(params, dev), SchedulerConfig(
+            max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
+            kv=kv, block_size=4, temperature=temperature))
+        out = sched.run([Request(rid=r, tokens=t, max_new_tokens=k)
+                         for r, t, k in spec])
+        return {rid: r.generated for rid, r in out.items()}
+    assert run(cuda) == run("cpu")
+
+
+@pytest.mark.gpu
+def test_categorical_equals_cpu(cuda):
+    """One key over (4, 32000) logits, and one key per row."""
+    logits = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 32000)).astype(np.float32) * 3)
+    for key in (prng.PRNGKey(5), prng.split(prng.PRNGKey(6), 4)):
+        want = prng.categorical(key, logits)
+        got = prng.categorical(key.to(cuda), logits.to(cuda))
+        assert torch.equal(got.cpu(), want)

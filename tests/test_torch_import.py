@@ -13,6 +13,7 @@ PORT = REPO / "src" / "repro_torch"
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, repro_torch, repro_torch.ft, repro_torch.serve, "
             "repro_torch.convert, repro_torch.launch.serve, "
+            "repro_torch.serve.scheduler, "
             "repro_torch.kernels.fused_decode.kernel, "
             "repro_torch.kernels.qmatmul.ops, "
             "repro_torch.kernels.fault_inject.ops, "

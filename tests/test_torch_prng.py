@@ -82,3 +82,60 @@ def test_bernoulli_traced_p():
                                                   (2000,)))(p)
     got = prng.bernoulli(prng.PRNGKey(2), torch.tensor(p), (2000,))
     _assert_bitwise(want, got.numpy())
+
+
+def test_fold_in_tensor_data():
+    """A (B,) vector folded into one key is vmap over the data; folded into
+    a (B, 2) key batch it goes row by row (the Scheduler's per-request
+    keys: request ids, then step indices, negative ones taken as uint32)."""
+    base = jax.random.PRNGKey(21)
+    rids = np.array([0, 7, 2**31, 2**32 - 1, 5], np.int64)
+    steps = np.array([0, -1, 3, 1, 2**31 + 1], np.int64)
+    want = jax.vmap(lambda r, t: jax.random.fold_in(
+        jax.random.fold_in(base, r), t))(rids.astype(np.uint32),
+                                         steps.astype(np.uint32))
+    got = prng.fold_in(prng.fold_in(prng.PRNGKey(21), torch.from_numpy(rids)),
+                       torch.from_numpy(steps))
+    _assert_bitwise(want, _np(got))
+
+
+@pytest.mark.parametrize("lo,hi", ((0., 1.), (-2., 3.), (1.5, 1.75),
+                                   (1e-20, 3.), (-7.25, 1e-3),
+                                   (float(np.finfo(np.float32).tiny), 1.)))
+def test_uniform_range(lo, hi):
+    k, kt = jax.random.PRNGKey(17), prng.PRNGKey(17)
+    _assert_bitwise(jax.random.uniform(k, (3, 700), minval=lo, maxval=hi),
+                    prng.uniform(kt, (3, 700), lo, hi).numpy())
+
+
+def test_gumbel_within_two_ulp_per_log():
+    """Stated tolerance: 2 float32 ulp at each of the two logs.  The uniform
+    draw is bitwise; ``y = -log(u)`` and ``g = -log(y)`` are each
+    framework's own float32 log, each within 1 ulp of exact, so the two may
+    differ by 2 ulp of y, which the outer log carries into g as a relative
+    2 ulp(y) / y, plus 2 ulp of g.  (Near g = 0 the first term is many ulp
+    of g.)"""
+    k, kt = jax.random.PRNGKey(19), prng.PRNGKey(19)
+    want = np.asarray(jax.random.gumbel(k, (4, 5000)))
+    got = prng.gumbel(kt, (4, 5000)).numpy()
+    y = np.exp(-want.astype(np.float64)).astype(np.float32)
+    tol = 2 * np.spacing(np.abs(want)) + 2 * np.spacing(y) / y
+    assert (np.abs(got - want) <= tol).all()
+    assert (got != want).any()       # the logs do differ: the bound is used
+
+
+@pytest.mark.parametrize("seed", (0, 3, 2**31 + 1))
+def test_categorical(seed):
+    """One key over (4, 32000) logits, and a batch of one key per row (the
+    Scheduler's vmap over requests)."""
+    logits = np.random.default_rng(seed % 1000).standard_normal(
+        (4, 32000)).astype(np.float32) * 3
+    k = jax.random.PRNGKey(seed)
+    got = prng.categorical(prng.PRNGKey(seed), torch.from_numpy(logits))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax.random.categorical(k, logits)))
+    ks = jax.random.split(k, 4)
+    got = prng.categorical(prng.as_key(np.asarray(ks)),
+                           torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jax.vmap(jax.random.categorical)(ks, logits)))
