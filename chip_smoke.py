@@ -34,25 +34,41 @@ its last line:
   5. entry points: quant_linear and inject, the kernel-level entry points of
      qmatmul and fault_inject, at the decode shapes, equal to the CPU;
   6. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed),
-     B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4, fused backend:
-     fused tokens equal reference tokens, the kernel ran once per
-     projection of every step, and its device time over that generation
-     (CUDA events around each launch) is the kernels line's ``ms``;
+     B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4, fused backend,
+     Engine(loop="python") (pinned: its counts and events are per Python
+     call of the kernel, which a graph replay does not make): fused tokens
+     equal reference tokens, the kernel ran once per projection of every
+     step, and its device time over that generation (CUDA events around
+     each launch) is the kernels line's ``ms``;
+  6b. scan: the same generation through Engine(loop="scan"), each decode
+     step a replay of one captured CUDA graph: tokens equal phase 6's
+     bitwise, in 2 round trips; capture s, a replay's wall ms (a decode
+     step, so decode tokens/s) and CUDA-event ms, peak memory, the
+     graph's memory, and a profiled replay (busy share; the kernel once
+     per projection);
   7. pallas engine: the same model, all 24 layers, through
-     Engine(ft_backend="pallas", ft_t=T) with T calibrated on layer 0's
-     first projection: protected_mm launched once per projection of every
-     step, its device time, and a second generation in which every launch
-     is held bitwise to protected_mm_ref, with the same tokens;
+     Engine(ft_backend="pallas", ft_t=T, loop="python") with T calibrated
+     on layer 0's first projection: protected_mm launched once per
+     projection of every step, its device time, and a second generation in
+     which every launch is held bitwise to protected_mm_ref, with the same
+     tokens;
+  7b. scan on the pallas backend, as 6b, against phase 7's tokens;
   8. scheduler: the same model, all 24 layers, through the continuous-
      batching Scheduler (4 slots, buckets 32/64, paged KV cache of 16-token
-     blocks, 4 decode steps per round trip) serving 8 requests of 9-64
-     prompt and 4-16 new tokens under crt3 at BER 1e-4 on the fused
-     backend: fused_decode at prefill (B = 1, global t) and at decode (per-
-     request keys, per-row t), launched 7 x 24 times per prefill call and
-     per decode step, its device time by prefill and decode; every request's
-     tokens equal the reference backend's; one request alone gives the
-     tokens it gave in the crowd; the kernel phase also checks and times
-     the scheduler's shapes (M = 32 and 64 global, M = 4 per-row);
+     blocks, 4 decode steps per round trip; loop="python", pinned as in 6)
+     serving 8 requests of 9-64 prompt and 4-16 new tokens under crt3 at
+     BER 1e-4 on the fused backend: fused_decode at prefill (B = 1, global
+     t) and at decode (per-request keys, per-row t), launched 7 x 24 times
+     per prefill call and per decode step, its device time by prefill and
+     decode; every request's tokens equal the reference backend's; one
+     request alone gives the tokens it gave in the crowd; the kernel phase
+     also checks and times the scheduler's shapes (M = 32 and 64 global,
+     M = 4 per-row);
+  8b. graph scheduler: the same requests on Scheduler(loop="scan"), each
+     decode step of a chunk a replay of one captured CUDA graph: every
+     request's tokens equal phase 8's bitwise, and the lone request's on a
+     second run of the same Scheduler; capture s, chunk-call and
+     prefill-call s, tokens/s, replay ms, peak memory, a profiled replay;
   9. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
@@ -60,7 +76,13 @@ its last line:
      card, paged and dense, emits the CPU's tokens clean and at temperature
      0.8; under crt1 at BER 1e-2 with per-row weight faults every protected
      projection of its fused run equals the CPU's on the same operands, and
-     its reference backend and dense layout give the fused run's tokens;
+     its reference backend and dense layout give the fused run's tokens
+     (the engines and the unchecked Schedulers here run their default
+     loop="scan": CUDA graphs on the card, eager on the CPU);
+  9b. split: the same faulty reduced Scheduler, eager, on the card and on
+     the CPU: the first protected projection whose int8 input differs
+     between them, with the last-place differences of its input and of
+     the rms_norm input before it, and x / scale on each device;
  10. a ``kernels`` JSON line (per kernel: its launches and device time on
      its path, and the kernel phase's sums of kernel, bound, plain and
      ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
@@ -735,8 +757,10 @@ def phase_engine(torch, m):
     from repro_torch.serve.engine import Engine, ServeConfig
     cfg, model, params, batch, policy = (m[k] for k in (
         "cfg", "model", "params", "batch", "policy"))
+    # the python loop, pinned: the launch count and the events below count
+    # each launch's Python call, which a graph replay does not make
     engines = {b: Engine(model, params, cfg=ServeConfig(max_new_tokens=NEW),
-                         policy=policy, ft_backend=b)
+                         policy=policy, ft_backend=b, loop="python")
                for b in ("fused", "reference")}
 
     fused = engines["fused"]
@@ -777,13 +801,14 @@ def phase_engine(torch, m):
     if fused.stats.roundtrips != 1 + NEW:
         raise AssertionError(f"roundtrips {fused.stats.roundtrips}")
     prof = phase_profile(torch, m, toks, "fused", None, "fused_decode_")
-    emit({"phase": "engine", "backend": "fused", "arch": cfg.name,
+    tps = B * NEW / (total_s - prefill_ms / 1e3)
+    emit({"phase": "engine", "backend": "fused", "loop": "python",
+          "arch": cfg.name,
           "layers": cfg.n_layers, "params": m["n_params"],
           "param_dtype": "bfloat16", "batch": B, "prompt": PROMPT,
           "new_tokens": NEW, "policy": "crt3", "ber": 1e-4,
           "init_s": round(m["init_s"], 3),
-          "prefill_ms": prefill_ms,
-          "decode_tokens_per_s": B * NEW / (total_s - prefill_ms / 1e3),
+          "prefill_ms": prefill_ms, "decode_tokens_per_s": tps,
           "generate_s": total_s, "reference_generate_s": ref_s,
           "max_memory_allocated_bytes": peak, "launches": launches,
           "fused_decode_ms": kernel_ms,
@@ -792,7 +817,9 @@ def phase_engine(torch, m):
         emit({"phase": "profile", "backend": "fused", "step": name, **row})
     del engines, fused
     torch.cuda.empty_cache()
-    return launches, kernel_ms
+    return dict(launches=launches, ms=kernel_ms, tokens=toks,
+                decode_tokens_per_s=tps, prefill_ms=prefill_ms,
+                step_wall_ms=prof["decode_step"]["wall_ms"])
 
 
 def phase_pallas_engine(torch, m):
@@ -820,7 +847,8 @@ def phase_pallas_engine(torch, m):
     print(f"pallas engine: ft_t = {T} (ft.calibrate_t on layer 0's attn/wq "
           "over the prompt)", flush=True)
     engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=NEW),
-                    policy=policy, ft_backend="pallas", ft_t=T)
+                    policy=policy, ft_backend="pallas", ft_t=T,
+                    loop="python")                  # pinned, as above
     prefill_ms = _timed_prefill(torch, engine, batch)
 
     torch.cuda.reset_peak_memory_stats()
@@ -874,12 +902,13 @@ def phase_pallas_engine(torch, m):
                              f"tokens:\n{toks.cpu()}\n{toks_checked.cpu()}")
     prof = phase_profile(torch, m, toks, "pallas", T, "protected_mm_kernel")
     planes = plane_cost(torch)
-    emit({"phase": "engine", "backend": "pallas", "arch": cfg.name,
+    tps = B * NEW / (total_s - prefill_ms / 1e3)
+    emit({"phase": "engine", "backend": "pallas", "loop": "python",
+          "arch": cfg.name,
           "layers": cfg.n_layers, "params": m["n_params"],
           "param_dtype": "bfloat16", "batch": B, "prompt": PROMPT,
           "new_tokens": NEW, "policy": "crt3", "ber": 1e-4, "ft_t": T,
-          "prefill_ms": prefill_ms,
-          "decode_tokens_per_s": B * NEW / (total_s - prefill_ms / 1e3),
+          "prefill_ms": prefill_ms, "decode_tokens_per_s": tps,
           "generate_s": total_s, "checked_generate_s": checked_s,
           "max_memory_allocated_bytes": peak, "launches": launches,
           "protected_mm_ms": kernel_ms, "launches_checked": n_checked,
@@ -887,7 +916,9 @@ def phase_pallas_engine(torch, m):
     for name, row in prof.items():
         emit({"phase": "profile", "backend": "pallas", "step": name, **row})
     emit({"phase": "planes", **planes})
-    return launches, kernel_ms
+    return dict(launches=launches, ms=kernel_ms, tokens=toks, ft_t=T,
+                decode_tokens_per_s=tps, prefill_ms=prefill_ms,
+                step_wall_ms=prof["decode_step"]["wall_ms"])
 
 
 def scheduler_workload(vocab):
@@ -918,7 +949,10 @@ def phase_scheduler(torch, m):
         return [Request(rid=r, tokens=list(t), max_new_tokens=k)
                 for r, t, k in spec if rids is None or r in rids]
     scfg = SchedulerConfig(**SCHED)
-    scheds = {b: Scheduler(model, params, scfg, policy=policy, ft_backend=b)
+    # the eager loop, pinned: the launch count and the events below count
+    # each launch's Python call, which a graph replay does not make
+    scheds = {b: Scheduler(model, params, scfg, policy=policy, ft_backend=b,
+                           loop="python")
               for b in ("fused", "reference")}
     fused = scheds["fused"]
 
@@ -993,7 +1027,8 @@ def phase_scheduler(torch, m):
             f"request {lone} alone gave {alone[lone].generated}, in the "
             f"crowd {out[lone].generated}")
     tokens = sum(len(r.generated) for r in out.values())
-    emit({"phase": "scheduler", "backend": "fused", "arch": cfg.name,
+    emit({"phase": "scheduler", "backend": "fused", "loop": "python",
+          "arch": cfg.name,
           "layers": cfg.n_layers, "policy": "crt3", "ber": 1e-4,
           "config": SCHED, "requests": N_REQUESTS,
           "prompt_lens": [len(t) for _, t, _ in spec],
@@ -1017,7 +1052,389 @@ def phase_scheduler(torch, m):
           "alone_equals_crowded": True, "tokens_rid0": out[0].generated})
     buckets = [fused._bucket(len(t)) for _, t, _ in spec]
     return dict(launches=launches, ms=timer.ms(), buckets=buckets,
-                decode_steps=SCHED["decode_chunk"] * st.chunk_calls)
+                decode_steps=SCHED["decode_chunk"] * st.chunk_calls,
+                tokens={r: out[r].generated for r, _, _ in spec},
+                alone_rid=lone, wall_s=wall_s,
+                chunk_calls_s=host_s["decode"],
+                prefill_calls_s=host_s["prefill"])
+
+
+def _replay_times(torch, graph, reset, n=5):
+    """Device ms of each of ``n`` replays of a StepGraph, from CUDA events
+    around each, and the mean host ms of one replay with its sync.
+    ``reset()`` runs before each replay, outside the timed span (the
+    Scheduler's step index must stay inside its chunk)."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    event_ms, wall_ms = [], 0.0
+    for s, e in ev:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        graph()
+        e.record()
+        torch.cuda.synchronize()
+        wall_ms += 1e3 * (time.perf_counter() - t0) / n
+        event_ms.append(s.elapsed_time(e))
+    return event_ms, wall_ms
+
+
+def _replay_profile(torch, graph, reset, kernel, want, wall_ms, tries=5):
+    """A replay under torch.profiler: its device kernel time, its busy share
+    against an unprofiled replay's ``wall_ms`` (as phase_profile's shares),
+    and how many kernels whose name holds ``kernel`` it ran, which must be
+    ``want``.  The profiler can lose a few events of a ~138k-kernel trace
+    (one replay read 334 of its 336 and 137,077 of ~138,400 kernels) and
+    never adds one, so a replay is traced again, up to ``tries`` times,
+    until a trace sees ``want``.  A trace that sees more, or no kernel, or
+    no trace that sees ``want``, fails."""
+    seen = []
+    for _ in range(tries):
+        reset()
+        prof = _profile(torch, graph, kernel)
+        if not prof["kernels_launched"]:
+            raise AssertionError(f"the profiler saw no kernel of a replay: "
+                                 f"{prof}")
+        seen.append(prof["kernel_launches"])
+        if prof["kernel_launches"] > want:
+            raise AssertionError(f"a replay ran {prof['kernel_launches']} "
+                                 f"{kernel}* kernels, expected {want}: "
+                                 f"{prof}")
+        if prof["kernel_launches"] == want:
+            break
+    else:
+        raise AssertionError(f"no trace of {tries} replays saw {want} "
+                             f"{kernel}* kernels: {seen}")
+    prof["wall_ms"] = wall_ms
+    prof["device_busy_share"] = prof["device_kernel_ms"] / wall_ms
+    prof["traces_seen"] = seen
+    return prof
+
+
+def _graph_launches(graph, python_calls, name, per_step):
+    """The protected kernel's launches in a graphed run: its wrapper counted
+    ``python_calls`` (the eager calls, and the capture's, which launch
+    nothing); each replay launches the capture's ``captured_calls`` again
+    uncounted.  The capture must hold one call per projection."""
+    if graph.graph is None or graph.captured_calls != per_step:
+        raise AssertionError(f"the capture recorded {graph.captured_calls} "
+                             f"{name} calls, expected {per_step}")
+    return python_calls - graph.captured_calls \
+        + graph.replays * graph.captured_calls
+
+
+def phase_scan(torch, m, backend, eager):
+    """Full-width danube through Engine(loop="scan") on ``backend``: each
+    decode step a replay of one captured CUDA graph.  The first generation
+    runs step 0 as the warm-up, captures the step and replays it for steps
+    1-15, and gives the python loop's tokens (``eager``, the engine phase's
+    run) bitwise, in 2 round trips.  The kernel's counter, zeroed before
+    it, shows its wrapper was called at the prefill, the warm-up and the
+    capture; with the capture's recorded calls and the replays, the
+    generation launched it as often as the python loop's.  A second
+    generation on the same Engine only loads the buffers and replays: its
+    decode tokens/s take the python phase's formula (its prefill ms, from
+    the engine phase, off the generation's wall time).  One replay is
+    also timed alone, and profiled: it runs the protected kernel's
+    kernels once per projection (fused_decode: GEMM and epilogue)."""
+    from repro_torch.kernels.fused_decode import kernel as fd_kernel
+    from repro_torch.kernels.protected_mm import kernel as pm_kernel
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg, model, params, batch, policy = (m[k] for k in (
+        "cfg", "model", "params", "batch", "policy"))
+    fused = backend == "fused"
+    counted = fd_kernel.fused_decode if fused else pm_kernel.protected_mm
+    name = "fused_decode" if fused else "protected_mm"
+    engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=NEW),
+                    policy=policy, ft_backend=backend,
+                    ft_t=None if fused else eager["ft_t"], loop="scan")
+    per_step = 7 * cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
+    counted.launches = 0                    # the path's run starts here
+    t0 = time.perf_counter()
+    toks = engine.generate(batch, seed=0)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    python_calls = counted.launches         # ... and ends here
+    step = engine._scan_step
+    graph = step.graph
+    if python_calls != 3 * per_step:
+        raise AssertionError(f"{name}'s wrapper was called {python_calls} "
+                             f"times, expected {3 * per_step} (the prefill, "
+                             "the warm-up step and the capture)")
+    if graph.replays != NEW - 1:
+        raise AssertionError(f"{graph.replays} replays, expected {NEW - 1}")
+    launches = _graph_launches(graph, python_calls, name, per_step)
+    if launches != per_step * (1 + NEW):
+        raise AssertionError(f"{name} launched {launches} times, expected "
+                             f"{per_step * (1 + NEW)}")
+    if engine.stats.roundtrips != 2:
+        raise AssertionError(f"roundtrips {engine.stats.roundtrips}")
+    if not torch.equal(toks, eager["tokens"]):
+        raise AssertionError(f"{backend} scan tokens differ from the python "
+                             f"loop's:\n{toks.cpu()}\n"
+                             f"{eager['tokens'].cpu()}")
+    peak = torch.cuda.max_memory_allocated()
+    kept = torch.cuda.memory_allocated() - allocated0
+    static = sum(t.numel() * t.element_size() for layer in
+                 step.caches.values() for t in layer["attn"].values())
+    t0 = time.perf_counter()
+    again = engine.generate(batch, seed=0)  # loads and replays only
+    torch.cuda.synchronize()
+    replay_generate_s = time.perf_counter() - t0
+    if engine._scan_step is not step or graph.replays != 2 * NEW - 1:
+        raise AssertionError("the second generation did not replay the "
+                             "first one's graph")
+    if not torch.equal(again, toks):
+        raise AssertionError(f"{backend} scan: a second generation differs")
+    tps = B * NEW / (replay_generate_s - eager["prefill_ms"] / 1e3)
+    event_ms, wall_ms = _replay_times(torch, graph, lambda: None)
+    prof = _replay_profile(torch, graph, lambda: None,
+                           "fused_decode_" if fused else "protected_mm_kernel",
+                           (2 if fused else 1) * per_step, wall_ms)
+    emit({"phase": "scan", "backend": backend, "loop": "scan",
+          "arch": cfg.name, "layers": cfg.n_layers, "batch": B,
+          "prompt": PROMPT, "new_tokens": NEW, "policy": "crt3",
+          "ber": 1e-4, "ft_t": None if fused else eager["ft_t"],
+          "capture_s": graph.capture_s, "generate_s": generate_s,
+          "replay_generate_s": replay_generate_s,
+          "prefill_ms": eager["prefill_ms"],
+          "decode_tokens_per_s": tps,
+          "python_decode_tokens_per_s": eager["decode_tokens_per_s"],
+          "replay_wall_ms": wall_ms, "replay_event_ms": event_ms,
+          "python_step_wall_ms": eager["step_wall_ms"],
+          "max_memory_allocated_bytes": peak,
+          "static_cache_bytes": static,
+          "graph_pool_bytes": kept - static,
+          "roundtrips": engine.stats.roundtrips,
+          "wrapper_calls": python_calls,
+          "captured_calls": graph.captured_calls, "replays": NEW - 1,
+          "launches": launches, "tokens_equal_python_loop": True})
+    emit({"phase": "profile", "backend": backend, "step": "scan_replay",
+          **prof})
+    del engine, step, graph
+    torch.cuda.empty_cache()
+
+
+def phase_graph_scheduler(torch, m, eager):
+    """The scheduler phase's 8 requests through Scheduler(loop="scan"): each
+    decode step of a chunk a replay of one captured CUDA graph.  Every
+    request's tokens equal the eager run's (``eager``, the scheduler
+    phase's) bitwise; a second run on the same Scheduler (caches zeroed,
+    graph kept) serves the lone request of that phase and gives its tokens
+    again.  The wrapper's calls (prefills, warm-up, capture), with the
+    capture's recorded calls and the replays, give the eager run's
+    launches; a profiled replay runs fused_decode's two kernels once per
+    projection."""
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg, model, params, policy = (m[k] for k in (
+        "cfg", "model", "params", "policy"))
+    spec = scheduler_workload(cfg.vocab)
+
+    def requests(rids=None):
+        return [Request(rid=r, tokens=list(t), max_new_tokens=k)
+                for r, t, k in spec if rids is None or r in rids]
+    sched = Scheduler(model, params, SchedulerConfig(**SCHED), policy=policy,
+                      ft_backend="fused", loop="scan")
+    host_s = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(fn, tag):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host_s[tag] += time.perf_counter() - t0
+            return out
+        return run
+    sched._prefill_one = timed(sched._prefill_one, "prefill")
+    sched._chunk = timed(sched._chunk, "decode")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
+    kernel.fused_decode.launches = 0        # the path's run starts here
+    t0 = time.perf_counter()
+    out = sched.run(requests())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    python_calls = kernel.fused_decode.launches  # ... and ends here
+    del sched._prefill_one, sched._chunk
+    st = sched.stats
+    graph = sched._step.graph
+    per_step = 7 * cfg.n_layers
+    if python_calls != per_step * (st.prefill_calls + 2):
+        raise AssertionError(
+            f"fused_decode's wrapper was called {python_calls} times, "
+            f"expected {per_step * (st.prefill_calls + 2)} (the prefills, "
+            "the warm-up step and the capture)")
+    want_replays = SCHED["decode_chunk"] * st.chunk_calls - 1
+    if graph.replays != want_replays:
+        raise AssertionError(f"{graph.replays} replays, expected "
+                             f"{want_replays}")
+    launches = _graph_launches(graph, python_calls, "fused_decode", per_step)
+    if launches != eager["launches"]:
+        raise AssertionError(f"fused_decode launched {launches} times, the "
+                             f"eager run {eager['launches']}")
+    for r, _, _ in spec:
+        if out[r].generated != eager["tokens"][r]:
+            raise AssertionError(
+                f"request {r}: graph tokens {out[r].generated} differ from "
+                f"the eager run's {eager['tokens'][r]}")
+    peak = torch.cuda.max_memory_allocated()
+    kept = torch.cuda.memory_allocated() - allocated0
+    static = sum(t.numel() * t.element_size() for layer in
+                 sched._caches.values() for t in layer["attn"].values())
+    lone = eager["alone_rid"]
+    t0 = time.perf_counter()
+    alone = sched.run(requests({lone}))
+    alone_s = time.perf_counter() - t0
+    if alone[lone].generated != eager["tokens"][lone]:
+        raise AssertionError(f"request {lone} alone on the graph "
+                             f"Scheduler gave {alone[lone].generated}")
+    reset = sched._step.j.zero_         # the step's index in its chunk
+    event_ms, wall_ms = _replay_times(torch, graph, reset)
+    prof = _replay_profile(torch, graph, reset, "fused_decode_",
+                           2 * per_step, wall_ms)
+    tokens = sum(len(r.generated) for r in out.values())
+    emit({"phase": "scheduler", "backend": "fused", "loop": "scan",
+          "arch": cfg.name, "layers": cfg.n_layers, "policy": "crt3",
+          "ber": 1e-4, "config": SCHED, "requests": N_REQUESTS,
+          "tokens": tokens, "capture_s": graph.capture_s, "wall_s": wall_s,
+          "tokens_per_s": tokens / wall_s,
+          "prefill_calls_s": host_s["prefill"],
+          "chunk_calls_s": host_s["decode"],
+          "chunk_tokens_per_s": (tokens - st.prefill_calls)
+          / host_s["decode"],
+          "replay_wall_ms": wall_ms, "replay_event_ms": event_ms,
+          "eager_wall_s": eager["wall_s"],
+          "eager_tokens_per_s": tokens / eager["wall_s"],
+          "eager_chunk_calls_s": eager["chunk_calls_s"],
+          "eager_prefill_calls_s": eager["prefill_calls_s"],
+          "prefill_calls": st.prefill_calls, "chunk_calls": st.chunk_calls,
+          "roundtrips": st.roundtrips, "replays": want_replays,
+          "wrapper_calls": python_calls,
+          "captured_calls": graph.captured_calls, "launches": launches,
+          "max_memory_allocated_bytes": peak,
+          "static_cache_bytes": static, "graph_pool_bytes": kept - static,
+          "alone_rid": lone, "alone_wall_s": alone_s,
+          "tokens_equal_eager": True, "alone_equals_crowded": True})
+    emit({"phase": "profile", "backend": "fused", "step":
+          "scheduler_replay", **prof})
+    del sched, graph
+    torch.cuda.empty_cache()
+
+
+def _first_split(torch, card_calls, cpu_calls):
+    """The first projection whose int8 input differs between two runs'
+    recorded calls (phase_split), or where their calls part."""
+    def ulps(a, b):
+        if a is None or b is None or a.shape != b.shape:
+            return None
+        d = (a.contiguous().view(torch.int32).to(torch.int64)
+             - b.contiguous().view(torch.int32).to(torch.int64))
+        return int(d.abs().max())
+
+    def from_half(v):
+        return float((v - torch.floor(v) - 0.5).abs())
+    for i, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        if a["site"] != b["site"] or a["xq"].shape != b["xq"].shape:
+            return dict(first_call_out_of_step=i,
+                        sites=[a["site"], b["site"]])
+        if torch.equal(a["xq"], b["xq"]):
+            continue
+        normed = a["site"].split("/")[-1] in ("wq", "wk", "wv", "wi", "wg")
+        return dict(
+            first_differing_projection=i, site=a["site"],
+            shape=list(a["x"].shape),
+            x_max_ulp_difference=ulps(a["x"], b["x"]),
+            rms_norm_input_max_ulp_difference=(
+                ulps(a["norm_in"], b["norm_in"]) if normed else None),
+            int8_differences=[dict(
+                index=ix, int8_card=int(a["xq"][tuple(ix)]),
+                int8_cpu=int(b["xq"][tuple(ix)]),
+                x_over_scale_card=float(a["v"][tuple(ix)]),
+                x_over_scale_cpu=float(b["v"][tuple(ix)]),
+                distance_from_half_card=from_half(a["v"][tuple(ix)]),
+                distance_from_half_cpu=from_half(b["v"][tuple(ix)]))
+                for ix in (a["xq"] != b["xq"]).nonzero().tolist()[:8]])
+    return dict(first_differing_projection=None)
+
+
+def phase_split(torch):
+    """Where a faulty run parts between the card and the CPU (ROADMAP.md
+    §C).  The reduced Scheduler of tests/test_torch_gpu.py (float32
+    parameters from seed 11, 5 requests on 2 slots, crt1 at BER 1e-2 with
+    per-row weight faults, fused backend, the eager loop so that every
+    projection calls Python) runs on the card and on the CPU; every
+    protected projection's input is recorded with its quantization as that
+    device computes it.  The line names the first projection whose int8
+    input differs: its call, site and shape, the largest last-place
+    (float32 ulp) difference of its input and of the rms_norm input that
+    produced it, and, for each int8 that differs, x / scale on each device
+    and how far its fraction sits from .5."""
+    import numpy as np
+
+    import repro_torch.ft as ftmod
+    from repro_torch import ft
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import quantization as Q
+    from repro_torch.models import build
+    from repro_torch.models import common, transformer
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    model = build(cfg, RunConfig(param_dtype="float32",
+                                 compute_dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(11), device="cpu")
+    rng = np.random.default_rng(30)
+    spec = [(i, [int(t) for t in rng.integers(0, cfg.vocab, 3 + 3 * (i % 3))],
+             4 + i % 3) for i in range(5)]
+    pol = ft.get_policy("crt1", ber=1e-2, weight_faults=True)
+
+    def run(dev):
+        calls, site, norm_in = [], [None], [None]
+        real_pl, real_sk = ftmod.protect_linear, common.FTCtx.site_key
+        real_norm = transformer.rms_norm
+
+        def site_key(self, name):
+            site[0] = name
+            return real_sk(self, name)
+
+        def rms_norm(x, scale, eps=1e-6):
+            norm_in[0] = x.detach().cpu()
+            return real_norm(x, scale, eps)
+
+        def protect_linear(key, x, w, policy, important=None, **kw):
+            xq, sx = Q.quantize(x, axis=1 if key.dim() == 2 else None)
+            calls.append(dict(site=site[0], x=x.cpu(), xq=xq.cpu(),
+                              v=(x / sx).cpu(), norm_in=norm_in[0]))
+            return real_pl(key, x, w, policy, important, **kw)
+        ftmod.protect_linear, common.FTCtx.site_key = protect_linear, \
+            site_key
+        transformer.rms_norm = rms_norm
+        try:
+            sched = Scheduler(model, _to(params, dev), SchedulerConfig(
+                max_batch=2, buckets=(8, 16), max_new_tokens=6,
+                decode_chunk=3, block_size=4), policy=pol,
+                ft_backend="fused", loop="python")
+            out = sched.run([Request(rid=r, tokens=t, max_new_tokens=k)
+                             for r, t, k in spec])
+        finally:
+            ftmod.protect_linear, common.FTCtx.site_key = real_pl, real_sk
+            transformer.rms_norm = real_norm
+        return {r: out[r].generated for r, _, _ in spec}, calls
+
+    card, card_calls = run(torch.device("cuda"))
+    cpu, cpu_calls = run("cpu")
+    row = {"phase": "split", "arch": cfg.name, "policy": "crt1",
+           "ber": 1e-2, "weight_faults": "per row", "requests": len(spec),
+           "projections": [len(card_calls), len(cpu_calls)],
+           "requests_whose_tokens_differ":
+               [r for r, _, _ in spec if card[r] != cpu[r]],
+           **_first_split(torch, card_calls, cpu_calls)}
+    emit(row)
 
 
 def plane_cost(torch):
@@ -1042,17 +1459,17 @@ def plane_cost(torch):
 def _profile(torch, fn, kernel):
     """Wall time of ``fn`` and the device time of its kernels, from one run
     under torch.profiler: all kernels, and those whose name holds
-    ``kernel``."""
+    ``kernel``.  Only the device is traced: an eager step's ~140k host ops
+    would double the events to read back."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = kern_us = 0.0
-    n_kernels = 0
+    n_kernels = n_kernel = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1061,9 +1478,10 @@ def _profile(torch, fn, kernel):
         n_kernels += 1
         if kernel in e.name:
             kern_us += us
+            n_kernel += 1
     return {"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
             "kernel": kernel, "kernel_ms": kern_us / 1e3,
-            "kernels_launched": n_kernels}
+            "kernels_launched": n_kernels, "kernel_launches": n_kernel}
 
 
 def phase_profile(torch, m, toks, backend, t, kernel):
@@ -1209,8 +1627,8 @@ def phase_faults(torch):
         n_proj += 1
         return y
     ft.protect_linear = checked_linear
-    try:
-        base = _reduced_scheduler(model, params, "fused", pol)
+    try:        # the eager loop: a graph replay calls no Python
+        base = _reduced_scheduler(model, params, "fused", pol, loop="python")
     finally:
         ft.protect_linear = real
     for backend, kv in (("reference", "paged"), ("fused", "dense")):
@@ -1228,7 +1646,7 @@ def phase_faults(torch):
 
 
 def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
-                       temperature=0.0):
+                       temperature=0.0, loop="scan"):
     """The reduced model through the Scheduler: 5 requests on 2 slots, two
     buckets, a block size that splits the window.  {rid: tokens}."""
     import numpy as np
@@ -1241,7 +1659,7 @@ def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
     sched = Scheduler(model, params, SchedulerConfig(
         max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
         kv=kv, block_size=4, temperature=temperature), policy=policy,
-        ft_backend=backend)
+        ft_backend=backend, loop=loop)
     return {rid: r.generated for rid, r in sched.run(reqs).items()}
 
 
@@ -1337,20 +1755,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    seconds = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(torch, *args)
+        key = phase.__name__ + "".join(f"_{a}" for a in args
+                                       if isinstance(a, str))
+        seconds[key] = time.perf_counter() - t0
+        return out
     name, smi = phase_device(torch)
+    t0 = time.perf_counter()
     phase_build()
-    rows, sched_rows, max_err = phase_kernels(torch)
-    dla, dla_err = phase_dla_kernels(torch)
-    entry, entry_bound = phase_entry_points(torch)
-    m = full_model(torch)
-    launches, kernel_ms = phase_engine(torch, m)
-    pallas = phase_pallas_engine(torch, m)
-    sched = phase_scheduler(torch, m)
+    seconds["phase_build"] = time.perf_counter() - t0
+    rows, sched_rows, max_err = run(phase_kernels)
+    dla, dla_err = run(phase_dla_kernels)
+    entry, entry_bound = run(phase_entry_points)
+    m = run(full_model)
+    fused = run(phase_engine, m)
+    run(phase_scan, m, "fused", fused)
+    pallas = run(phase_pallas_engine, m)
+    run(phase_scan, m, "pallas", pallas)
+    sched = run(phase_scheduler, m)
+    run(phase_graph_scheduler, m, sched)
     del m
     torch.cuda.empty_cache()
-    phase_faults(torch)
-    emit(kernels_line(name, smi, (rows, sched_rows, max_err, launches,
-                                  kernel_ms), dla, dla_err, pallas, entry,
+    run(phase_faults)
+    run(phase_split)
+    emit({"phase": "seconds", **seconds})
+    emit(kernels_line(name, smi, (rows, sched_rows, max_err, fused["launches"],
+                                  fused["ms"]), dla, dla_err,
+                      (pallas["launches"], pallas["ms"]), entry,
                       entry_bound, sched))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

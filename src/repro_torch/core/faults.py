@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
+from repro_torch.device import scalar
 
 # one threefry evaluation covers at most this many draws; above it the
 # planes of a flip word are drawn in groups to bound the int64 temporaries
@@ -43,13 +44,11 @@ def fold_stream(key: torch.Tensor, *indices) -> torch.Tensor:
 
 def _thresholds(ber, r, planes, device):
     """float32 threshold of each drawn plane: ``ber`` for raw planes, the
-    residual rate for TMR-voted ones (odd split indices)."""
-    if isinstance(ber, torch.Tensor):
-        vals = [r if j % 2 else ber for j in planes]
-        return torch.stack([v.to(device=device, dtype=torch.float32)
-                            for v in vals])
-    return torch.tensor([r if j % 2 else ber for j in planes],
-                        dtype=torch.float32, device=device)
+    residual rate for TMR-voted ones (odd split indices).  Built on the
+    device from fills (no host-to-device copy, so a CUDA graph can hold
+    it)."""
+    lo, hi = (scalar(v, torch.float32, device) for v in (ber, r))
+    return torch.stack([hi if j % 2 else lo for j in planes])
 
 
 def flip_word(key: torch.Tensor, shape, ber, bits: int,
@@ -87,7 +86,9 @@ def flip_word(key: torch.Tensor, shape, ber, bits: int,
     drawn = {}
     for g0 in range(0, len(planes), group):
         sel = planes[g0:g0 + group]
-        u = prng.uniform(keys[..., sel, :], shape)      # (..., P, *shape)
+        # a stack of views, not a list index: no host-to-device copy
+        u = prng.uniform(torch.stack([keys[..., j, :] for j in sel], dim=-2),
+                         shape)                  # (..., P, *shape)
         thr = _thresholds(ber, r, sel, key.device)
         f = u < thr.view(len(sel), *([1] * len(shape)))
         for i, j in enumerate(sel):

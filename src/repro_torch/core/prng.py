@@ -156,7 +156,7 @@ def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` with a float32 ``p`` (a Python
     float, or a float32 tensor broadcastable against the draw)."""
     if not isinstance(p, torch.Tensor):
-        p = torch.tensor(p, dtype=torch.float32, device=key.device)
+        p = torch.full((), p, dtype=torch.float32, device=key.device)
     return uniform(key, shape) < p
 
 

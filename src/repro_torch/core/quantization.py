@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import scalar
+
 INT8_MAX = 127
 ACC_BITS = 24          # paper: "the accumulator data width is 24 bits"
 MUL_OUT_BITS = 16      # 8b x 8b -> 16b product
@@ -28,12 +30,13 @@ def quantize(x: torch.Tensor, bits: int = 8, axis=None):
     qmax = 2 ** (bits - 1) - 1
     ax = x.abs()
     amax = ax.amax() if axis is None else ax.amax(dim=axis, keepdim=True)
-    floor = torch.tensor(1e-8, dtype=amax.dtype, device=amax.device)
+    floor = torch.full((), 1e-8, dtype=amax.dtype, device=amax.device)
     # a device-tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which can differ from IEEE division by
-    # one ulp; the reference, and the CPU, divide
-    scale = torch.maximum(amax, floor) / torch.tensor(
-        float(qmax), dtype=amax.dtype, device=amax.device)
+    # one ulp; the reference, and the CPU, divide.  Both constants are
+    # device fills, not host-to-device copies, so a CUDA graph can hold them
+    scale = torch.maximum(amax, floor) / torch.full(
+        (), float(qmax), dtype=amax.dtype, device=amax.device)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
     return q, scale
 
@@ -64,10 +67,6 @@ def saturate(acc: torch.Tensor, bits: int = ACC_BITS) -> torch.Tensor:
     return torch.clamp(acc, -(1 << (bits - 1)), (1 << (bits - 1)) - 1)
 
 
-def _as_int(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int32, device=like.device)
-
-
 def choose_trunc_lsb(acc_absmax: torch.Tensor, out_bits: int = OUT_BITS,
                      q_scale=0, acc_bits: int = ACC_BITS) -> torch.Tensor:
     """Truncation LSB ``t = clip(bit_length(max(a, 1)) - (out_bits-1),
@@ -75,18 +74,19 @@ def choose_trunc_lsb(acc_absmax: torch.Tensor, out_bits: int = OUT_BITS,
     compares as in the reference.  ``q_scale`` may be an int or an int
     tensor (the traced ``dyn`` knob); it never leaves the device."""
     a = torch.clamp(acc_absmax.abs().to(torch.int32), min=1)
-    thresholds = torch.tensor([1 << b for b in range(acc_bits)],
-                              dtype=torch.int32, device=a.device)
+    thresholds = 1 << torch.arange(acc_bits, dtype=torch.int32,
+                                   device=a.device)
     need = (a.unsqueeze(-1) >= thresholds).sum(-1).to(torch.int32)
     t = torch.clamp(need - (out_bits - 1), min=0)
-    t = torch.maximum(t, _as_int(q_scale, t))
-    return torch.minimum(t, _as_int(acc_bits - out_bits, t))
+    t = torch.maximum(t, scalar(q_scale, torch.int32, t.device))
+    return torch.minimum(t, scalar(acc_bits - out_bits, torch.int32,
+                                   t.device))
 
 
 def truncate_acc(acc: torch.Tensor, t, out_bits: int = OUT_BITS):
     """Signed window [t+out_bits-1 : t] of the accumulator with round-to-
     nearest and saturation (the DLA requantization step)."""
-    t = _as_int(t, acc)
+    t = scalar(t, torch.int32, acc.device)
     half = torch.where(t > 0, 1 << torch.clamp(t - 1, min=0),
                        torch.zeros_like(t))
     rounded = (acc + half) >> t

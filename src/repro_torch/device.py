@@ -13,3 +13,13 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("no CUDA device found; pass device='cpu' to run "
                            "the port on the CPU")
     return dev
+
+
+def scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """``v`` as ``dtype`` on ``device``: a tensor, of any shape, is moved (a
+    no-op where it is there already); a Python or numpy number becomes a
+    0-d fill on the device, which is no host-to-device copy, so a CUDA
+    graph can hold it."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=device)

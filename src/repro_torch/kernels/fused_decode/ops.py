@@ -20,13 +20,14 @@ import torch
 
 from repro_torch.core import faults, prng
 from repro_torch.core import quantization as Q
+from repro_torch.device import scalar
 from repro_torch.kernels.fused_decode.kernel import fused_decode
 
 
 def ber_scalar(ber, device) -> torch.Tensor:
     """The policy's BER as the reference's jitted datapath sees it: a 0-d
     float32 value (the policy pytree's one traced leaf)."""
-    return torch.as_tensor(ber, dtype=torch.float32).to(device)
+    return scalar(ber, torch.float32, device)
 
 
 def key_schedule(key: torch.Tensor):
@@ -41,8 +42,7 @@ def knobs(policy, dyn, device):
     circ = policy.circuit
 
     def val(name, default):
-        return torch.as_tensor(dyn.get(name, default),
-                               dtype=torch.int32).to(device)
+        return scalar(dyn.get(name, default), torch.int32, device)
     return (val("ib_th", circ.ib_th), val("nb_th", circ.nb_th),
             val("q_scale", policy.algorithm.q_scale))
 

@@ -2,10 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
       [--smoke] [--batch 4] [--prompt-len 64] [--new 16] \
-      [--policy crt3 --ber 1e-4 [--weight-faults]] [--device cpu]
+      [--loop scan|python] [--policy crt3 --ber 1e-4 [--weight-faults]] \
+      [--device cpu]
 
-Counterpart of ``repro.launch.serve`` (python decode loop, no mesh) on the
-fused backend.  The weights and prompts are random, from fixed seeds;
+Counterpart of ``repro.launch.serve`` (no mesh) on the fused backend.
+``--loop scan`` (the default, as the reference's) replays each decode step
+as a CUDA graph on the card; ``--loop python`` runs one step per host
+round trip.  The weights and prompts are random, from fixed seeds;
 ``--smoke`` serves the reduced config.  Weight faults are off unless asked
 for: at full width their eager draws take minutes per token (ROADMAP.md).
 """
@@ -22,6 +25,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new", type=int, default=16)
+    ap.add_argument("--loop", choices=("scan", "python"), default="scan",
+                    help="graph-replayed decode steps (default) or the "
+                         "per-token dispatch loop")
     ap.add_argument("--policy", default=None,
                     help="registry policy name (e.g. crt3, cl)")
     ap.add_argument("--ber", type=float, default=1e-4)
@@ -48,7 +54,8 @@ def main(argv=None):
     if args.policy:
         policy = ft.get_policy(args.policy, ber=args.ber,
                                weight_faults=args.weight_faults)
-    engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=args.new),
+    engine = Engine(model, params, cfg=ServeConfig(max_new_tokens=args.new,
+                                                   loop=args.loop),
                     policy=policy, ft_backend="fused")
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
@@ -58,7 +65,8 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     print(f"generated {out.shape[1]} tokens for {out.shape[0]} requests in "
-          f"{engine.stats.roundtrips} host roundtrips, {dt:.3f} s on {dev}")
+          f"{engine.stats.roundtrips} host roundtrips ({args.loop} loop), "
+          f"{dt:.3f} s on {dev}")
     print(out.cpu())
     return out
 

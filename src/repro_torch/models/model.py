@@ -56,7 +56,7 @@ class Model:
         cfg, run = self.cfg, self.run
         B = token.shape[0]
         x = T.embed_tokens(params, cfg, token[:, None])
-        pos = torch.as_tensor(pos, dtype=torch.int64, device=token.device)
+        pos = _device.scalar(pos, torch.int64, token.device)
         positions = (pos.reshape(B, 1) if pos.dim()
                      else pos.expand(B).reshape(B, 1))
         h, new_caches = T.backbone(params, x, cfg=cfg, run=run, mode="decode",

@@ -1,10 +1,21 @@
 """Batched serving engine: prefill, then decode one token per step, greedy
 or at a temperature.
 
-Counterpart of ``repro.serve.engine`` with ``loop="python"``: one prefill
-and one decode step per new token, so a generation costs ``1 + n_new`` host
-round trips.  Pass a protection policy (object or registry name) and every
-projection of prefill and decode computes through the faulty-DLA path:
+Counterpart of ``repro.serve.engine``, with its two decode loops:
+
+  * ``loop="scan"`` (the default, as in the reference): the reference runs
+    the whole decode loop as one compiled ``lax.scan``; here one decode
+    step is a ``serve.graphs.StepGraph``, captured once as a CUDA graph on
+    the card and replayed per token (run eagerly on the CPU).  Step ``i``
+    reads the step index, the position ``pos0 + i``, the fault key
+    ``fold_in(ftkey, i + 1)`` and the sampling key from static device
+    buffers, so a generation costs 2 host round trips (the prefill and
+    the loop), as ``ServeStats`` counts them;
+  * ``loop="python"``: one prefill and one decode step per new token,
+    ``1 + n_new`` round trips.
+
+Pass a protection policy (object or registry name) and every projection of
+prefill and decode computes through the faulty-DLA path:
 ``ft_backend="fused"`` on the hand-written ``fused_decode`` kernel,
 ``ft_backend="pallas"`` on the hand-written ``protected_mm`` kernel with
 calibrated truncation LSBs ``ft_t``.
@@ -16,20 +27,30 @@ from ``ftkey``, decode step ``i`` from ``fold_in(ftkey, i + 1)``.  At a
 temperature above 0 the first token is ``categorical(skey, logits / T)``
 with one key for the whole batch, and ``skey = fold_in(skey, i)`` before
 step ``i``'s sample (``repro_torch.core.prng.categorical``, jax's Gumbel max
-on the port's threefry).
+on the port's threefry).  The first token's division is eager in both
+loops; the scan's later samples take ``logits * (1 / T)``, the product the
+reference's compiler makes of its division by a constant, and the python
+loop's divide, so the two loops sample alike only at temperature 0, as in
+the reference.
 
-Not ported yet (ROADMAP.md): ``loop="scan"``, whose torch counterpart is a
-CUDA-graph capture of the decode step; device meshes.
+The scan keeps one set of static caches and one graph, for the shape of
+the last prefill's caches (the batch, and the capacity of full-attention
+layers): each generation copies its prefill's caches into them, and a new
+shape frees them and captures a new graph, so a server holds one set
+whatever the prompts it sees.  Not ported yet (ROADMAP.md): device meshes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.serve.graphs import StepGraph
 
-LOOPS = ("python",)           # "scan" is not ported (ROADMAP.md)
+LOOPS = ("scan", "python")
 
 
 @dataclasses.dataclass
@@ -37,15 +58,34 @@ class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0
     seed: int = 0
-    loop: str = "python"
+    loop: str = "scan"            # "scan" (graphed) | "python" (per-token)
 
 
 @dataclasses.dataclass
 class ServeStats:
     """Host-dispatch accounting for the last ``generate`` call: one round
-    trip for the prefill and one per decode step."""
+    trip for the prefill, and one for the scan loop or one per decode step
+    of the python loop."""
     roundtrips: int = 0
     tokens: int = 0
+
+
+def ft_ctx(policy, key, backend, t=None):
+    """The forward's fault-tolerance context, or None without a policy."""
+    if policy is None:
+        return None
+    from repro_torch.models.common import FTCtx
+    return FTCtx(policy, key, backend=backend, t=t)
+
+
+def sample_scaled(logits, key, temperature):
+    """A compiled loop's sample: ``logits * (1 / T)`` in float32, the
+    product the reference's compiler makes of its division by a constant
+    (the Engine's scan and the Scheduler); argmax at temperature 0."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    inv = float(np.float32(1) / np.float32(temperature))
+    return prng.categorical(key, logits * inv).to(torch.int32)
 
 
 class Engine:
@@ -62,10 +102,6 @@ class Engine:
         self.model, self.params = model, params
         self.cfg = cfg or ServeConfig()
         self.loop = loop or self.cfg.loop
-        if self.loop == "scan":
-            raise NotImplementedError(
-                "loop='scan' is not ported: its torch counterpart, a CUDA "
-                "graph of the decode step, is queued in ROADMAP.md")
         if self.loop not in LOOPS:
             raise ValueError(f"unknown loop {self.loop!r}; expected {LOOPS}")
         self.policy = as_policy(policy)
@@ -74,13 +110,10 @@ class Engine:
         self.device = params["embed"].device
         self.stats = ServeStats()
         self._n_calls = 0
+        self._scan_step = None       # _ScanStep of the last shape
 
     def _ftc(self, ftkey):
-        if self.policy is None:
-            return None
-        from repro_torch.models.common import FTCtx
-        return FTCtx(self.policy, ftkey, backend=self.ft_backend,
-                     t=self.ft_t)
+        return ft_ctx(self.policy, ftkey, self.ft_backend, self.ft_t)
 
     def _sample(self, logits, key):
         temperature = self.cfg.temperature
@@ -127,6 +160,10 @@ class Engine:
             self.stats = ServeStats(roundtrips=1, tokens=0)
             return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
                                device=self.device)
+        if self.loop == "scan":
+            out = self._scan(caches, tok, prompt_len, ftkey, skey, n_new)
+            self.stats = ServeStats(roundtrips=2, tokens=out.numel())
+            return out
         out = []
         for i in range(n_new):
             out.append(tok)
@@ -138,3 +175,73 @@ class Engine:
         out = torch.stack(out, dim=1)
         self.stats = ServeStats(roundtrips=1 + n_new, tokens=out.numel())
         return out
+
+    def _scan(self, caches, tok, pos0, ftkey, skey, n_new):
+        """The scan loop: ``n_new`` runs of the decode step for these
+        caches' shapes; each emits the token it consumes, so the result is
+        ``[tok0, ..., tok_{n_new-1}]``, as the reference's scan."""
+        shapes = (tuple(tok.shape), tok.dtype) + tuple(
+            (lid, name, tuple(c.shape), c.dtype)
+            for lid, layer in caches.items()
+            for name, c in layer["attn"].items())
+        step = self._scan_step
+        if step is None or step.shapes != shapes:
+            self._scan_step = step = None    # free the old buffers first
+            step = self._scan_step = _ScanStep(
+                self.model, self.params, caches, tok,
+                functools.partial(ft_ctx, self.policy, backend=self.ft_backend,
+                                  t=self.ft_t), self.cfg.temperature, shapes)
+        step.load(caches, tok, pos0, ftkey, skey)
+        out = []
+        for _ in range(n_new):
+            out.append(step.tok.clone())
+            step.graph()
+        return torch.stack(out, dim=1)
+
+
+class _ScanStep:
+    """One decode step of the scan loop over static buffers for caches of
+    ``shapes``: the caches (copied in from each prefill), the carried token and sampling key, the
+    step index ``i``, the prompt length ``pos0`` and the fault key.  Step
+    ``i`` decodes at ``pos0 + i`` under ``fold_in(ftkey, i + 1)``, folds
+    ``i`` into the sampling key and samples the next token, all on the
+    device; ``graph`` runs it (``serve.graphs.StepGraph``).  The step holds
+    its buffers and no Engine, so nothing here is a reference cycle and the
+    device memory goes with the Engine."""
+
+    def __init__(self, model, params, caches, tok, ftc, temperature,
+                 shapes):
+        dev = tok.device
+        self.shapes = shapes
+        self.caches = caches = {
+            lid: {"attn": {name: torch.zeros_like(c)
+                           for name, c in layer["attn"].items()}}
+            for lid, layer in caches.items()}
+        self.tok = tok = torch.zeros_like(tok)
+        self.i, self.pos0 = i, pos0 = [
+            torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
+        self.ftkey, self.skey = ftkey, skey = [
+            torch.zeros((2,), dtype=torch.int64, device=dev)
+            for _ in range(2)]
+
+        def step():
+            _, logits = model.decode_step(
+                params, caches, tok, pos0 + i,
+                ftc=ftc(prng.fold_in(ftkey, i + 1)))
+            key = prng.fold_in(skey, i)
+            tok.copy_(sample_scaled(logits, key, temperature))
+            skey.copy_(key)
+            i.add_(1)
+        self.graph = StepGraph(step, dev)
+
+    def load(self, caches, tok, pos0, ftkey, skey):
+        """A generation's starting state: its prefill's caches, first token,
+        prompt length and keys; step index 0."""
+        for lid, layer in caches.items():
+            for name, c in layer["attn"].items():
+                self.caches[lid]["attn"][name].copy_(c)
+        self.tok.copy_(tok)
+        self.pos0.fill_(pos0)
+        self.i.zero_()
+        self.ftkey.copy_(ftkey)
+        self.skey.copy_(skey)

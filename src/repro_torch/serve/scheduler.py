@@ -32,22 +32,33 @@ temperature above 0 row b samples ``categorical(fold_in(fold_in(sbase,
 rid_b), tstep_b + 1), logits_b * (1 / T))``: the reference's division by a
 constant, which its compiler turns into that product.
 
-The loop runs on the device the parameters are on; its step is a Python
-loop of ``decode_step`` calls (the reference scans it inside one
-executable), and ``SchedStats`` counts the same calls the reference counts
-as executables.  Not ported (ROADMAP.md): ``mesh=``, the recurrent,
-encoder-decoder and vision families (the port's model raises for them).
+The loop runs on the device the parameters are on.  The reference scans a
+decode chunk inside one executable; here (``loop="scan"``, the default)
+one decode step of every slot is a ``serve.graphs.StepGraph``: captured
+once per Scheduler as a CUDA graph on the card and replayed
+``decode_chunk`` times per chunk, run eagerly on the CPU.  The step reads
+the tokens, positions, step indices, row keys and active mask from static
+device buffers, which each chunk loads from the host in one copy, and the
+Scheduler keeps one set of caches, zeroed at the start of every run, that
+the graph owns.  ``loop="python"`` runs the same step eagerly on any
+device.  ``SchedStats`` counts the same calls the reference counts as
+executables, in both loops.  Not ported (ROADMAP.md): ``mesh=``, the
+recurrent, encoder-decoder and vision families (the port's model raises
+for them).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.models import transformer as T
+from repro_torch.serve.engine import LOOPS, ft_ctx, sample_scaled
+from repro_torch.serve.graphs import StepGraph
 
 
 @dataclasses.dataclass
@@ -94,16 +105,21 @@ class SchedStats:
 
 class Scheduler:
     def __init__(self, model, params, cfg: SchedulerConfig | None = None,
-                 policy=None, ft_backend: str = "reference", mesh=None):
+                 policy=None, ft_backend: str = "reference", mesh=None,
+                 loop: str = "scan"):
         """``policy``: a protection policy (or registry name) applied to
         every projection, on ``ft_backend`` "reference" or "fused" (per-row
         keys need one of the two; the reference's ``ft_t`` serves only the
-        pallas backend, which it refuses too).  Runs on the device the
-        parameters are on."""
+        pallas backend, which it refuses too).  ``loop``: "scan" replays
+        the decode step as a CUDA graph on the card, "python" runs it
+        eagerly.  Runs on the device the parameters are on."""
         from repro_torch.ft import as_policy
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported (ROADMAP.md, queue A item 6)")
+        if loop not in LOOPS:
+            raise ValueError(f"unknown loop {loop!r}; expected {LOOPS}")
+        self.loop = loop
         self.model, self.params = model, params
         self.cfg = cfg or SchedulerConfig()
         self.policy = as_policy(policy)
@@ -156,23 +172,16 @@ class Scheduler:
 
         ks = prng.split(prng.PRNGKey(self.cfg.seed, device=self.device))
         self._ftbase, self._sbase = ks[0], ks[1]
+        self._caches = None          # one set per Scheduler (_run_caches)
+        self._step = None            # the chunk's decode step (_ChunkStep)
 
     # ------------------------------------------------------------ steps ----
     def _ftc(self, keys):
-        if self.policy is None:
-            return None
-        from repro_torch.models.common import FTCtx
-        return FTCtx(self.policy, keys, backend=self.ft_backend)
+        return ft_ctx(self.policy, keys, self.ft_backend)
 
     def _sample(self, logits, rids, tsteps):
-        """Row b's token; at a temperature, from the key
-        ``fold_in(fold_in(sbase, rid_b), tstep_b + 1)``."""
-        temperature = self.cfg.temperature
-        if temperature <= 0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        inv = float(np.float32(1) / np.float32(temperature))
-        keys = prng.fold_in(prng.fold_in(self._sbase, rids), tsteps + 1)
-        return prng.categorical(keys, logits * inv).to(torch.int32)
+        return _sample_rows(logits, rids, tsteps, sbase=self._sbase,
+                            temperature=self.cfg.temperature)
 
     def _prefill_one(self, batch1, last_idx, rid):
         """B = 1 prefill under the request's key ``fold(fold(ftbase, rid),
@@ -214,27 +223,25 @@ class Scheduler:
         for c in caches.values():
             c["attn"]["bt"][slot] = 0
 
-    def _chunk(self, caches, tok, pos, tstep, rids, active, n_steps):
-        """``n_steps`` decode steps of every slot; tokens, positions and
-        step indices advance only in active rows.  Returns the new
-        (tok, pos, tstep) and the (B, n_steps) tokens, on the host."""
-        dev = self.device
-        tok, pos, tstep, rids = (torch.from_numpy(a).to(dev, torch.int64)
-                                 for a in (tok, pos, tstep, rids))
-        active = torch.from_numpy(active).to(dev)
-        act = active.to(torch.int64)
-        rowkeys = prng.fold_in(self._ftbase, rids)
-        toks = []
-        for _ in range(n_steps):
-            keys = prng.fold_in(rowkeys, tstep + 1)
-            caches, logits = self.model.decode_step(
-                self.params, caches, tok, pos, ftc=self._ftc(keys))
-            nxt = self._sample(logits, rids, tstep).to(torch.int64)
-            tok = torch.where(active, nxt, tok)
-            pos = pos + act
-            tstep = tstep + act
-            toks.append(nxt)
-        host = torch.stack([tok, pos, tstep] + toks).cpu().numpy()
+    def _chunk(self, caches, tok, pos, tstep, rids, active):
+        """``decode_chunk`` decode steps of every slot; tokens, positions
+        and step indices advance only in active rows.  Returns the new
+        (tok, pos, tstep) and the (B, decode_chunk) tokens, on the host."""
+        if self._step is None:
+            self._step = _ChunkStep(
+                self.model, self.params, caches, self.cfg.max_batch,
+                self.cfg.decode_chunk,
+                self._ftbase, functools.partial(
+                    ft_ctx, self.policy, backend=self.ft_backend),
+                functools.partial(_sample_rows, sbase=self._sbase,
+                                  temperature=self.cfg.temperature))
+        st = self._step
+        st.load(np.stack([tok, pos, tstep, rids, active]))
+        run = st.graph if self.loop == "scan" else st.graph.step
+        for _ in range(self.cfg.decode_chunk):
+            run()
+        host = torch.cat([torch.stack([st.tok, st.pos, st.tstep]),
+                          st.toks]).cpu().numpy()
         return (host[0].astype(np.int32), host[1].astype(np.int32),
                 host[2].astype(np.int32), host[3:].T)
 
@@ -271,11 +278,21 @@ class Scheduler:
             need += -(-min(total, self._window) // bs)
         return need
 
-    def _init_caches(self, B: int):
-        paged = ((self.cfg.block_size, self.n_blocks)
-                 if self.cfg.kv == "paged" else None)
-        return self.model.init_cache(B, self.capacity, device=self.device,
-                                     paged=paged)
+    def _run_caches(self):
+        """Zero caches for a run: allocated once per Scheduler, since the
+        chunk's graph owns them, and zeroed (block tables back at the trash
+        block) at the start of every later run."""
+        if self._caches is None:
+            paged = ((self.cfg.block_size, self.n_blocks)
+                     if self.cfg.kv == "paged" else None)
+            self._caches = self.model.init_cache(
+                self.cfg.max_batch, self.capacity, device=self.device,
+                paged=paged)
+        else:
+            for layer in self._caches.values():
+                for c in layer["attn"].values():
+                    c.zero_()
+        return self._caches
 
     # ---------------------------------------------------------------- run --
     @torch.no_grad()
@@ -314,7 +331,7 @@ class Scheduler:
         slots: list[Request | None] = [None] * B
         out = {}
 
-        caches = self._init_caches(B)
+        caches = self._run_caches()
         tok = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
         tstep = np.zeros((B,), np.int32)
@@ -402,8 +419,7 @@ class Scheduler:
 
             # ---- one decode chunk --------------------------------------
             tok, pos, tstep, toks = self._chunk(caches, tok, pos, tstep,
-                                                rids, active,
-                                                cfg.decode_chunk)
+                                                rids, active)
             self.stats.chunk_calls += 1
 
             # ---- harvest + evict ---------------------------------------
@@ -428,3 +444,61 @@ class Scheduler:
                     self._retire(caches, s)
                     self.stats.retire_calls += 1
         return out
+
+
+def _sample_rows(logits, rids, tsteps, sbase, temperature):
+    """Row b's token; at a temperature, from the key ``fold_in(fold_in(
+    sbase, rid_b), tstep_b + 1)``, the logits scaled by ``1 / T``."""
+    keys = (prng.fold_in(prng.fold_in(sbase, rids), tsteps + 1)
+            if temperature > 0 else None)
+    return sample_scaled(logits, keys, temperature)
+
+
+class _ChunkStep:
+    """One decode step of every slot over static buffers: the tokens,
+    positions, step indices and request ids (int64, (B,)), the active mask,
+    the row keys ``fold_in(ftbase, rid)``, the index ``j`` of the step in
+    its chunk and the chunk's (decode_chunk, B) tokens; the Scheduler's
+    caches.  ``graph`` runs it (``serve.graphs.StepGraph``).  The step
+    holds its buffers and no Scheduler, so nothing here is a reference
+    cycle."""
+
+    def __init__(self, model, params, caches, B, decode_chunk, ftbase, ftc,
+                 sample):
+        dev = ftbase.device
+        self.tok, self.pos, self.tstep, self.rids = tok, pos, tstep, rids = [
+            torch.zeros((B,), dtype=torch.int64, device=dev)
+            for _ in range(4)]
+        self.active = active = torch.zeros((B,), dtype=torch.bool,
+                                           device=dev)
+        self.rowkeys = rowkeys = torch.zeros((B, 2), dtype=torch.int64,
+                                             device=dev)
+        self.j = j = torch.zeros((), dtype=torch.int64, device=dev)
+        self.toks = toks = torch.zeros((decode_chunk, B), dtype=torch.int64,
+                                       device=dev)
+        self._ftbase = ftbase
+
+        def step():
+            keys = prng.fold_in(rowkeys, tstep + 1)
+            _, logits = model.decode_step(params, caches, tok, pos,
+                                          ftc=ftc(keys))
+            nxt = sample(logits, rids, tstep).to(torch.int64)
+            toks.index_copy_(0, j.reshape(1), nxt.reshape(1, B))
+            act = active.to(torch.int64)
+            tok.copy_(torch.where(active, nxt, tok))
+            pos.add_(act)
+            tstep.add_(act)
+            j.add_(1)
+        self.graph = StepGraph(step, dev)
+
+    def load(self, host: np.ndarray):
+        """A chunk's starting state from the host's (5, B) rows of tokens,
+        positions, step indices, request ids and active flags, in one
+        host-to-device copy."""
+        rows = torch.from_numpy(host.astype(np.int64)).to(self.tok.device)
+        for buf, row in zip((self.tok, self.pos, self.tstep, self.rids),
+                            rows):
+            buf.copy_(row)
+        self.active.copy_(rows[4] != 0)
+        self.rowkeys.copy_(prng.fold_in(self._ftbase, self.rids))
+        self.j.zero_()

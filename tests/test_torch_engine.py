@@ -14,6 +14,17 @@ the reference's parameters carried across by params_from_jax).
     of the reference's own fused-vs-reference engine test).  crt3 runs the
     scanned layout (unroll=False, one set of site names for every layer),
     as full-width configs do, and its prefill logits are held to TOL too.
+    Both of the port's loops are held: "scan" (its default, as the
+    reference's: one decode step run over static buffers, replayed as a
+    CUDA graph on the card and eagerly here) with 2 host round trips, and
+    "python" with 1 + n.  At temperature 0 the reference's own tests hold
+    its scan's tokens equal to its python loop's (tests/test_serve_engine.py),
+    so one reference run serves both of the port's loops.
+  * The scan stays right over back-to-back generations that reuse its
+    static buffers (equal and different prompt lengths, another batch, and
+    on a config with global layers, another capacity).  Its step, and the
+    Scheduler's, make no host sync and no host-to-device copy (what a CUDA
+    graph cannot hold).
   * The key schedule (_call_key) is bitwise the reference's.
   * The pallas backend: under crt3 at BER 3e-3 with the truncation LSB
     ft_t=6, the port's Engine emits the reference Engine's tokens, with one
@@ -26,13 +37,16 @@ tokens, so each one's prefill and decode compile once.
 """
 import contextlib
 import functools
+import gc
 import types
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.configs.h2o_danube_1_8b as JD
 import repro_torch.configs.h2o_danube_1_8b as TD
@@ -52,6 +66,7 @@ from repro_torch.models import common as tcommon
 from repro_torch.models.common import FTCtx as TFTCtx
 from repro_torch.models.transformer import layer_names
 from repro_torch.serve import engine as tengine
+from repro_torch.serve import scheduler as tsched
 
 # one intra-op thread: the suite runs in parallel worker processes, and
 # torch's spinning OpenMP pool would take their cores
@@ -175,34 +190,156 @@ def test_scanned_prefill_logits():
     assert np.abs(np.asarray(jl) - tl.numpy()).max() <= TOL
 
 
+@functools.cache
+def _jax_tokens(policy, weight_faults):
+    return np.asarray(_jax_engine(policy, weight_faults).generate(
+        {"tokens": jnp.asarray(_prompt())}, seed=0))
+
+
+def _roundtrips(loop, n_new):
+    return 2 if loop == "scan" else 1 + n_new
+
+
+@pytest.mark.parametrize("loop", tengine.LOOPS)
 @pytest.mark.parametrize("policy,weight_faults", (("crt3", False),
                                                   ("cl", True)))
-def test_engine_tokens_match_reference(policy, weight_faults):
+def test_engine_tokens_match_reference(policy, weight_faults, loop):
     _, _, tm, tp = _models(UNROLL[policy])
-    toks = _prompt()
-    want = np.asarray(_jax_engine(policy, weight_faults).generate(
-        {"tokens": jnp.asarray(toks)}, seed=0))
+    want = _jax_tokens(policy, weight_faults)
     for backend in ("reference", "fused"):
         teng = tengine.Engine(
             tm, tp, cfg=tengine.ServeConfig(max_new_tokens=N_NEW),
             policy=tft.get_policy(policy, ber=3e-3,
                                   weight_faults=weight_faults),
-            ft_backend=backend)
-        got = teng.generate({"tokens": torch.from_numpy(toks)}, seed=0)
+            ft_backend=backend, loop=loop)
+        got = teng.generate({"tokens": torch.from_numpy(_prompt())}, seed=0)
         np.testing.assert_array_equal(got.numpy(), want, backend)
-        assert teng.stats.roundtrips == 1 + N_NEW
+        assert teng.stats.roundtrips == _roundtrips(loop, N_NEW)
         assert teng.stats.tokens == want.size
 
 
 def test_engine_refuses_what_is_not_ported():
+    """The scan loop is the default and runs; an unknown loop raises; a
+    prefill-only probe returns no tokens."""
+    assert tengine.LOOPS == ("scan", "python")
+    assert tengine.ServeConfig().loop == "scan"
     tm = tbuild(TD.REDUCED, TRun(**F32))
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        tengine.Engine(tm, tp, loop="scan")
+    with pytest.raises(ValueError, match="unknown loop"):
+        tengine.Engine(tm, tp, loop="while")
+    eng = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(max_new_tokens=3))
+    assert eng.loop == "scan"
+    out = eng.generate({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    assert out.shape == (1, 3) and eng.stats.roundtrips == 2
     out = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(
         max_new_tokens=0)).generate({"tokens": torch.zeros(
             (1, 4), dtype=torch.long)})
     assert out.shape == (1, 0)
+
+
+@pytest.mark.parametrize("pattern", (("L",), ("G", "L")))
+def test_scan_back_to_back_generations(pattern):
+    """One scan Engine serves prompts of 20, 6 and again 20 tokens, then
+    another batch, each equal to a fresh python-loop Engine on it: the
+    static buffers (caches, token, position, step index, keys) are loaded
+    anew each time.  A new cache shape replaces the Engine's one set of
+    buffers: a new batch, and with a global layer ("G") a new prompt length
+    (a new cache capacity)."""
+    tcfg = treduce(TD.CONFIG, block_pattern=pattern)
+    tm = tbuild(tcfg, TRun(**F32))
+    tp = tm.init(torch.Generator().manual_seed(1), device="cpu")
+    pol = tft.get_policy("crt3", ber=3e-3, weight_faults=False)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, tcfg.vocab, shape) for shape in
+               ((2, PROMPT), (2, 6), (2, PROMPT), (3, 9))]
+    scan = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(max_new_tokens=3),
+                          policy=pol, ft_backend="fused")
+    kept = []
+    for i, toks in enumerate(prompts):
+        batch = {"tokens": torch.from_numpy(toks)}
+        want = tengine.Engine(
+            tm, tp, cfg=tengine.ServeConfig(max_new_tokens=3), policy=pol,
+            ft_backend="fused", loop="python").generate(batch, seed=i)
+        before = scan._scan_step
+        assert torch.equal(scan.generate(batch, seed=i), want), i
+        kept.append(scan._scan_step is before)
+    assert kept == ([False, True, True, False] if pattern == ("L",)
+                    else [False] * 4)
+
+
+def test_scan_buffers_go_with_their_owner():
+    """An Engine's scan buffers and a Scheduler's caches are freed with
+    their owner, by reference counting alone (no cycle through the step
+    closure), so a dropped server gives back its device memory at once."""
+    tm = tbuild(TD.REDUCED, TRun(**F32))
+    tp = tm.init(torch.Generator().manual_seed(4), device="cpu")
+    eng = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(max_new_tokens=2))
+    eng.generate({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    sched = tsched.Scheduler(tm, tp, tsched.SchedulerConfig(
+        max_batch=2, buckets=(8,), max_new_tokens=4, decode_chunk=2))
+    sched.run([tsched.Request(rid=0, tokens=[1, 2], max_new_tokens=3)])
+    step = eng._scan_step
+    refs = [weakref.ref(step.caches["l0"]["attn"]["k"]),
+            weakref.ref(sched._caches["l0"]["attn"]["k"])]
+    del step
+    gc.disable()
+    try:
+        del eng, sched
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
+class _NoHostTraffic(TorchDispatchMode):
+    """Raises on what a CUDA graph capture cannot hold: a tensor made from
+    host data (``lift_fresh``: a Python number or list sent to the
+    device), a host read of a device value, ``nonzero`` and a boolean
+    index (both sync)."""
+    SYNCS = (torch.ops.aten.lift_fresh.default,
+             torch.ops.aten._local_scalar_dense.default,
+             torch.ops.aten.nonzero.default)
+    INDEXING = (torch.ops.aten.index.Tensor, torch.ops.aten.index_put_.default,
+                torch.ops.aten.index_put.default)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.SYNCS or (func in self.INDEXING and any(
+                i is not None and i.dtype == torch.bool for i in args[1])):
+            raise AssertionError(f"{func} in a graphed decode step")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("backend", ("reference", "fused", "pallas"))
+def test_scan_step_makes_no_host_traffic(backend):
+    """The scan's decode step (at a temperature, under cl with weight
+    faults; crt3 on pallas) runs under _NoHostTraffic."""
+    tm = tbuild(TD.REDUCED, TRun(**F32))
+    tp = tm.init(torch.Generator().manual_seed(2), device="cpu")
+    pallas = backend == "pallas"
+    eng = tengine.Engine(
+        tm, tp, cfg=tengine.ServeConfig(max_new_tokens=1, temperature=0.7),
+        policy=tft.get_policy("crt3" if pallas else "cl", ber=3e-3,
+                              weight_faults=not pallas),
+        ft_backend=backend, ft_t=T_PALLAS if pallas else None)
+    eng.generate({"tokens": torch.from_numpy(_prompt())}, seed=0)
+    step = eng._scan_step
+    with _NoHostTraffic():
+        step.graph.step()
+
+
+def test_scheduler_step_makes_no_host_traffic():
+    """The Scheduler's decode step (per-row keys, per-row weight faults, a
+    temperature; fused_decode's per-row mode) runs under _NoHostTraffic."""
+    tm = tbuild(TD.REDUCED, TRun(**F32))
+    tp = tm.init(torch.Generator().manual_seed(3), device="cpu")
+    sched = tsched.Scheduler(tm, tp, tsched.SchedulerConfig(
+        max_batch=2, buckets=(8,), max_new_tokens=4, decode_chunk=2,
+        temperature=0.7), policy=tft.get_policy(
+            "crt1", ber=1e-2, weight_faults=True), ft_backend="fused")
+    sched.run([tsched.Request(rid=i, tokens=[1, 2, 3 + i], max_new_tokens=3)
+               for i in range(3)])
+    sched._step.j.zero_()           # the step index within a chunk
+    with _NoHostTraffic():
+        sched._step.graph.step()
 
 
 @contextlib.contextmanager
@@ -210,37 +347,43 @@ def _no_raise():
     yield
 
 
-def test_serve_launcher_on_cpu():
+def test_serve_launcher_on_cpu(capsys):
     from repro_torch.launch import serve
-    out = serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--device",
-                      "cpu", "--policy", "cl", "--weight-faults", "--batch",
-                      "2", "--prompt-len", "5", "--new", "3"])
-    assert out.shape == (2, 3)
+    outs = [serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--device",
+                        "cpu", "--policy", "cl", "--weight-faults",
+                        "--batch", "2", "--prompt-len", "5", "--new", "3",
+                        *loop]) for loop in ((), ("--loop", "python"))]
+    assert outs[0].shape == (2, 3) and torch.equal(*outs)
+    printed = capsys.readouterr().out
+    assert "2 host roundtrips (scan loop)" in printed
+    assert "4 host roundtrips (python loop)" in printed
     with pytest.raises(RuntimeError, match="no CUDA device") \
             if not torch.cuda.is_available() else _no_raise():
         serve.main(["--arch", "h2o-danube-1.8b", "--smoke", "--new", "1"])
 
 
-def _pallas_engine(tm, tp, ft_t):
+def _pallas_engine(tm, tp, ft_t, loop=None):
     return tengine.Engine(
         tm, tp, cfg=tengine.ServeConfig(max_new_tokens=N_NEW_PALLAS),
         policy=tft.get_policy("crt3", ber=3e-3, weight_faults=False),
-        ft_backend="pallas", ft_t=ft_t)
+        ft_backend="pallas", ft_t=ft_t, loop=loop)
 
 
 def test_pallas_engine_tokens_match_reference():
-    """ft_t as one int, and as a {site: int} table over every site of the
-    unrolled layout (a site missing from it would raise)."""
+    """ft_t as one int, in both loops, and as a {site: int} table over
+    every site of the unrolled layout (a site missing from it would
+    raise)."""
     _, _, tm, tp = _models()
     toks = _prompt()
     want = np.asarray(_jax_pallas_engine().generate(
         {"tokens": jnp.asarray(toks)}, seed=0))
     table = {name: T_PALLAS for name in _sites(tm.cfg)}
-    for ft_t in (T_PALLAS, table):
-        teng = _pallas_engine(tm, tp, ft_t)
+    for ft_t, loop in ((T_PALLAS, "scan"), (T_PALLAS, "python"),
+                       (table, "scan")):
+        teng = _pallas_engine(tm, tp, ft_t, loop)
         got = teng.generate({"tokens": torch.from_numpy(toks)}, seed=0)
-        np.testing.assert_array_equal(got.numpy(), want, str(ft_t))
-        assert teng.stats.roundtrips == 1 + N_NEW_PALLAS
+        np.testing.assert_array_equal(got.numpy(), want, f"{ft_t} {loop}")
+        assert teng.stats.roundtrips == _roundtrips(loop, N_NEW_PALLAS)
 
 
 def test_pallas_prefill_logits():

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
-fused_decode, and the DLA kernels qmatmul, protected_mm and fault_inject.
+fused_decode, and the DLA kernels qmatmul, protected_mm and fault_inject;
+the serving paths on the card against the CPU; and the decode steps
+replayed as CUDA graphs (Engine(loop="scan"), the Scheduler's chunk)
+against the same steps run eagerly.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports neither jax nor the JAX package, so it runs where only the port is
@@ -425,7 +428,8 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-def _reduced_scheduler_run(dev, params, backend, kv, temperature=0.0):
+def _reduced_scheduler_run(dev, params, backend, kv, temperature=0.0,
+                           loop="scan"):
     """Reduced danube (float32) through the Scheduler: 5 requests on 2
     slots, crt1 at BER 1e-2 with per-row weight faults (none at a
     temperature).  Returns ({rid: (tokens, finish_reason)}, SchedStats)."""
@@ -445,7 +449,7 @@ def _reduced_scheduler_run(dev, params, backend, kv, temperature=0.0):
     sched = Scheduler(model, _to(params, dev), SchedulerConfig(
         max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
         kv=kv, block_size=4, temperature=temperature), policy=pol,
-        ft_backend=backend)
+        ft_backend=backend, loop=loop)
     out = sched.run(reqs)
     return ({rid: (r.generated, r.finish_reason) for rid, r in out.items()},
             sched.stats)
@@ -481,7 +485,8 @@ def test_scheduler_projections_equal_cpu(cuda, monkeypatch):
     and integer datapath of both modes.  (Whole-run tokens are held across
     devices only clean: the card's and the CPU's float ops, rms_norm first,
     differ in the last place, and a quantization rounding that lands on .5
-    turns that into a different int8 operand.)"""
+    turns that into a different int8 operand: chip_smoke.py's split line
+    finds that projection.)"""
     import repro_torch.ft as ftmod
     real = ftmod.protect_linear
     n = 0
@@ -496,8 +501,10 @@ def test_scheduler_projections_equal_cpu(cuda, monkeypatch):
         n += 1
         return y
     monkeypatch.setattr(ftmod, "protect_linear", checked)
+    # the eager loop, so that every step calls protect_linear (a graph
+    # replay calls no Python)
     _, stats = _reduced_scheduler_run(cuda, _reduced_params(), "fused",
-                                      "paged")
+                                      "paged", loop="python")
     assert n == 7 * 2 * (stats.prefill_calls + 3 * stats.chunk_calls)
 
 
@@ -538,3 +545,119 @@ def test_categorical_equals_cpu(cuda):
         want = prng.categorical(key, logits)
         got = prng.categorical(key.to(cuda), logits.to(cuda))
         assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------------ CUDA-graph decode --
+def _reduced_engine_pair(cuda, backend):
+    """Reduced danube (float32) on the card, and an Engine factory for
+    ``loop``: crt3 at BER 3e-3 on the pallas backend (ft_t 6), cl with
+    weight faults on the fused one."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    model = build(cfg, RunConfig(param_dtype="float32",
+                                 compute_dtype="float32"))
+    params = _to(_reduced_params(), cuda)
+    pallas = backend == "pallas"
+    pol = ft.get_policy("crt3" if pallas else "cl", ber=3e-3,
+                        weight_faults=not pallas)
+
+    def engine(loop):
+        return Engine(model, params, cfg=ServeConfig(max_new_tokens=4),
+                      policy=pol, ft_backend=backend,
+                      ft_t=6 if pallas else None, loop=loop)
+    return cfg, engine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ("fused", "pallas"))
+def test_scan_graph_equals_python_loop_on_the_card(cuda, backend):
+    """Engine(loop="scan") on the card: its first generation runs step 0
+    as the warm-up, captures the step and replays it for steps 1-3; the
+    next ones only replay, also at another prompt length.  Each equals the
+    python loop's tokens on the card, bitwise."""
+    cfg, engine = _reduced_engine_pair(cuda, backend)
+    scan, python = engine("scan"), engine("python")
+    g = torch.Generator().manual_seed(40)
+    for i, S in enumerate((20, 20, 6)):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (3, S),
+                                         generator=g).to(cuda)}
+        got = scan.generate(batch, seed=i)
+        assert scan.stats.roundtrips == 2
+        assert torch.equal(got, python.generate(batch, seed=i)), i
+    step = scan._scan_step
+    assert step.graph.graph is not None and step.graph.replays == 3 + 4 + 4
+    assert step.graph.capture_s > 0
+    assert step.graph.captured_calls == 7 * cfg.n_layers   # projections
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", (0.0, 0.8))
+def test_graph_scheduler_equals_eager_on_the_card(cuda, temperature):
+    """The Scheduler's chunk replayed as a CUDA graph equals the same step
+    run eagerly (loop="python") on the card, per request: under crt1 with
+    per-row weight faults, and clean at a temperature; a second run on the
+    same Scheduler (its caches zeroed, its graph kept) equals the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    model = build(cfg, RunConfig(param_dtype="float32",
+                                 compute_dtype="float32"))
+    params = _to(_reduced_params(), cuda)
+    rng = np.random.default_rng(33)
+    spec = [(i, [int(t) for t in rng.integers(0, cfg.vocab, 3 + 3 * (i % 3))],
+             4 + i % 3) for i in range(5)]
+    pol = (None if temperature else
+           ft.get_policy("crt1", ber=1e-2, weight_faults=True))
+
+    def scheduler(loop):
+        return Scheduler(model, params, SchedulerConfig(
+            max_batch=2, buckets=(8, 16), max_new_tokens=6, decode_chunk=3,
+            block_size=4, temperature=temperature), policy=pol,
+            ft_backend="fused", loop=loop)
+
+    def run(sched):
+        out = sched.run([Request(rid=r, tokens=t, max_new_tokens=k)
+                         for r, t, k in spec])
+        return {rid: r.generated for rid, r in out.items()}
+    graphed = scheduler("scan")
+    want = run(scheduler("python"))
+    assert run(graphed) == want
+    assert run(graphed) == want
+    assert graphed._step.graph.replays == 2 * 3 * graphed.stats.chunk_calls - 1
+    assert graphed._step.graph.captured_calls == (7 * cfg.n_layers if pol
+                                                  else 0)
+
+
+@pytest.mark.gpu
+def test_capture_with_a_host_sync_raises(cuda):
+    """A step that reads a device value on the host cannot be captured:
+    StepGraph raises, and does not fall back to running it eagerly.  (In a
+    process of its own: a failed capture may leave the process's current
+    stream behind.)"""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from repro_torch.serve.graphs import StepGraph\n"
+        "x = torch.zeros((), device='cuda')\n"
+        "def step():\n"
+        "    x.add_(1)\n"
+        "    int(x)\n"
+        "g = StepGraph(step, 'cuda')\n"
+        "try:\n"
+        "    g()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', g.graph is None, repr(str(e)[:200]))\n"
+        "else:\n"
+        "    print('ran', float(x))\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=src))
+    assert out.stdout.startswith("raised True"), (out.stdout, out.stderr)

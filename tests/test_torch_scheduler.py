@@ -14,7 +14,14 @@ per module and its output reused.
     faults on the port's reference and fused backends (per-row keys, so
     ``fused_decode``'s per-row mode at decode); clean at temperature 0.8
     (per-row sampling keys).
-  * The Engine at temperature 0.8 emits the reference Engine's tokens.
+  * The Engine at temperature 0.8 emits the reference Engine's tokens, in
+    each loop: the python loop divides by the temperature, the scan, as
+    the reference's compiled scan, multiplies by its float32 reciprocal
+    after the first token.
+  * The Scheduler's default loop="scan" runs its decode step over static
+    buffers (a CUDA graph on the card, eager here); loop="python" runs the
+    same step eagerly on any device, and is held to the reference too.
+    (tests/test_torch_engine.py holds the step free of host traffic.)
   * Port-only invariants: paged = dense; a request alone = in a crowd under
     crt1 with per-row weight faults; fused = reference there; EOS eviction;
     and the guards.
@@ -113,13 +120,13 @@ def _jax_run(name):
 
 
 def _port_run(name, backend="reference", weight_faults=False, requests=None,
-              **over):
+              loop="scan", **over):
     _, _, tm, tp = _models()
     _, policy, n = RUNS[name]
     sched = tsched.Scheduler(tm, tp, _cfg(tsched, name, **over), policy=(
         None if policy is None else tft.get_policy(
             policy, ber=BER, weight_faults=weight_faults)),
-        ft_backend=backend)
+        ft_backend=backend, loop=loop)
     out = sched.run(requests or _requests(tsched, n))
     return ({rid: (r.generated, r.finish_reason) for rid, r in out.items()},
             dict(sched.stats.__dict__))
@@ -154,6 +161,15 @@ def test_faulty_run_matches_reference(backend):
     assert gstats == wstats
 
 
+def test_python_loop_matches_reference():
+    """loop="python", the same decode step run eagerly on any device, on
+    the fused backend under crt1."""
+    want, wstats = _jax_run("crt1")
+    got, gstats = _port_run("crt1", "fused", loop="python")
+    _assert_same(got, want)
+    assert gstats == wstats
+
+
 def test_faults_are_real():
     """The crt1 run's tokens differ from the same workload served clean."""
     want, _ = _jax_run("crt1")
@@ -174,22 +190,24 @@ def test_temperature_matches_reference():
     assert greedy != got
 
 
-def test_engine_temperature_matches_reference():
-    """Engine(loop="python") at temperature 0.8, clean: one sampling key for
-    the whole batch, folded by the step index."""
+@pytest.mark.parametrize("loop", tengine.LOOPS)
+def test_engine_temperature_matches_reference(loop):
+    """Engine(loop=loop) at temperature 0.8, clean, against the reference
+    Engine in the same loop: one sampling key for the whole batch, folded
+    by the step index."""
     jm, jp, tm, tp = _models()
     toks = np.random.default_rng(3).integers(0, JD.REDUCED.vocab,
                                              (2, 6)).astype(np.int32)
     want = np.asarray(jengine.Engine(jm, jp, cfg=jengine.ServeConfig(
-        max_new_tokens=5, temperature=0.8, loop="python")).generate(
+        max_new_tokens=5, temperature=0.8, loop=loop)).generate(
             {"tokens": jnp.asarray(toks)}, seed=4))
     teng = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(
-        max_new_tokens=5, temperature=0.8))
+        max_new_tokens=5, temperature=0.8, loop=loop))
     got = teng.generate({"tokens": torch.from_numpy(toks)}, seed=4)
     np.testing.assert_array_equal(got.numpy(), want)
     greedy = tengine.Engine(tm, tp, cfg=tengine.ServeConfig(
-        max_new_tokens=5)).generate({"tokens": torch.from_numpy(toks)},
-                                    seed=4)
+        max_new_tokens=5, loop=loop)).generate(
+            {"tokens": torch.from_numpy(toks)}, seed=4)
     assert not torch.equal(got, greedy)
 
 
@@ -263,6 +281,8 @@ def _guard(case):
         tsched.Scheduler(tm, tp, policy=pol, ft_backend="pallas")
     elif case == "queue A item 6":
         tsched.Scheduler(tm, tp, mesh=object())
+    elif case == "unknown loop":
+        tsched.Scheduler(tm, tp, loop="while")
     elif case == "duplicate":
         tsched.Scheduler(tm, tp, small).run([
             tsched.Request(rid=1, tokens=prompt(4), max_new_tokens=4),
@@ -281,7 +301,8 @@ def _guard(case):
 
 
 @pytest.mark.parametrize("case", ("window", "max_prompt", "kv layout",
-                                  "pallas", "queue A item 6", "duplicate",
+                                  "pallas", "queue A item 6", "unknown loop",
+                                  "duplicate",
                                   "capacity", "blocks", "largest bucket"))
 def test_scheduler_guards(case):
     exc = NotImplementedError if case == "queue A item 6" else ValueError
