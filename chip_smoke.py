@@ -42,8 +42,9 @@ its last line:
      each launch) is the kernels line's ``ms``;
   6b. scan: the same generation through Engine(loop="scan"), each decode
      step a replay of one captured CUDA graph: tokens equal phase 6's
-     bitwise, in 2 round trips; capture s, a replay's wall ms (a decode
-     step, so decode tokens/s) and CUDA-event ms, peak memory, the
+     bitwise, in 2 round trips; capture s, a second generation's decode
+     tokens/s (its own prefill, timed inside it, off its wall time), a
+     replay's wall ms and CUDA-event ms, peak memory, the
      graph's memory, and a profiled replay (busy share; the kernel once
      per projection);
   7. pallas engine: the same model, all 24 layers, through
@@ -79,6 +80,16 @@ its last line:
      its reference backend and dense layout give the fused run's tokens
      (the engines and the unchecked Schedulers here run their default
      loop="scan": CUDA graphs on the card, eager on the CPU);
+  9a. dse: the paper's cross-layer DSE (Algorithms 1-3) on the card: the
+     reduced VGG trained by trained_cnn("vgg", steps=250), CnnOracle at
+     its defaults (384 images, 3 fault draws), every protected conv and
+     the head one fused_decode launch (the kernel phase also checks and
+     times these 5 conv shapes, M up to 98,304, K 9-512, N 8-32, global t,
+     with and without the DPPU's clean-weight recompute); every launch of
+     three accuracies held bitwise to fused_ref, fused = reference
+     accuracies, Figs. 5-7, the DSE of examples/crosslayer_dse.py with its
+     launches counted, and a card-against-CPU line (phase_dse's
+     docstring);
   9b. split: the same faulty reduced Scheduler, eager, on the card and on
      the CPU: the first protected projection whose int8 input differs
      between them, with the last-place differences of its input and of
@@ -86,14 +97,15 @@ its last line:
  10. a ``kernels`` JSON line (per kernel: its launches and device time on
      its path, and the kernel phase's sums of kernel, bound, plain and
      ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
-     fused_decode's also the same for its scheduler run), then the
-     last line
+     fused_decode's also the same for its scheduler run and its DSE run),
+     then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import functools
 import json
 import re
@@ -135,6 +147,48 @@ EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
 MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
 # the kernels on the split-K tensor-core GEMM core
 CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
+# the dse phase: the reference's benchmark settings (CNNConfig(), trained
+# 250 steps; CnnOracle's 384 images, 3 fault draws; the DSE of
+# examples/crosslayer_dse.py at --iters 16 --batch 8)
+DSE = dict(train_steps=250, ber=1e-3, iter_max_step=16, batch_size=8,
+           check_ber=2e-3)
+# VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
+# benchmarks/workloads.py (which imports the JAX package): (name, out_hw,
+# k, cin, cout), then the three fc layers; the first 40% are "sensitive"
+_VGG16 = (
+    ("conv1_1", 224, 3, 3, 64), ("conv1_2", 224, 3, 64, 64),
+    ("conv2_1", 112, 3, 64, 128), ("conv2_2", 112, 3, 128, 128),
+    ("conv3_1", 56, 3, 128, 256), ("conv3_2", 56, 3, 256, 256),
+    ("conv3_3", 56, 3, 256, 256),
+    ("conv4_1", 28, 3, 256, 512), ("conv4_2", 28, 3, 512, 512),
+    ("conv4_3", 28, 3, 512, 512),
+    ("conv5_1", 14, 3, 512, 512), ("conv5_2", 14, 3, 512, 512),
+    ("conv5_3", 14, 3, 512, 512),
+)
+
+
+def vgg16_gemms():
+    from repro_torch.core.perfmodel import Gemm
+    out = [(n, hw * hw, k * k * cin, cout) for n, hw, k, cin, cout in _VGG16]
+    out += [("fc6", 1, 7 * 7 * 512, 4096), ("fc7", 1, 4096, 4096),
+            ("fc8", 1, 4096, 1000)]
+    n_sens = int(0.4 * len(out))
+    return [Gemm(*g, sensitive=i < n_sens) for i, g in enumerate(out)]
+
+
+def conv_shapes(n_eval=384):
+    """[(site, (M, K, N))] of the protected GEMMs of one CnnOracle forward
+    of CNNConfig() (vgg, channels 16/32, 16x16, 8 classes) over ``n_eval``
+    images: each 3x3 conv an im2col GEMM, then the head."""
+    from repro_torch.models.cnn import CNNConfig
+    cfg = CNNConfig()
+    hw, cin, out = cfg.hw, cfg.in_channels, []
+    for si, c in enumerate(cfg.channels):
+        out.append((f"s{si}_c0", (n_eval * hw * hw, 9 * cin, c)))
+        out.append((f"s{si}_c1", (n_eval * hw * hw, 9 * c, c)))
+        hw, cin = hw // 2, c
+    out.append(("head", (n_eval, hw * hw * cin, cfg.n_classes)))
+    return out
 
 
 def emit(obj):
@@ -433,8 +487,42 @@ def phase_kernels(torch):
         sched_rows.append(row)
         emit({"phase": "kernel", "kernel": "fused_decode", **row})
         del ops
+    conv_rows = []
+    for site, (M, K, N) in conv_shapes():
+        ops = _operands(torch, g, dev, M, K, N)
+        max_err = max(max_err, _check_modes(torch, g, ops, (3,)),
+                      _check_modes(torch, g, _edges(ops), (0, 12, 20)))
+        ops = _operands(torch, g, dev, M, K, N)
+        qs = torch.tensor([3], dtype=torch.int32, device=dev)
+        # torch._int_mm takes K >= 16 and a multiple of 8: pad K with zeros
+        Kp = max(-(-K // 8) * 8, 16)
+        xpad = torch.zeros((M, Kp), dtype=torch.int8, device=dev)
+        wpad = torch.zeros((Kp, N), dtype=torch.int8, device=dev)
+        xpad[:, :K], wpad[:K] = ops["xq"], ops["wq"]
+        library_ms = cuda_ms(torch, functools.partial(torch._int_mm, xpad,
+                                                      wpad), 20)
+        for dppu, label in (("none", "global t, no DPPU"),
+                            ("wcl", "global t, DPPU wcl")):
+            kw = {} if dppu == "none" else dict(
+                wq_clean=ops["wq_clean"], dflips=ops["dflips"],
+                imp=ops["imp"])
+            args = (ops["xq"], ops["wq"], ops["oflips"], qs)
+            b_ms, b_by = bound(M, K, N, (False, dppu, False))
+            row = dict(shape=[M, K, N], path="dse", site=site, mode=label,
+                       plan=list(kernel.gemm_plan(M, K, N, sm_count(dev))),
+                       kernel_ms=cuda_ms(torch, functools.partial(
+                           kernel.fused_decode, *args, dppu_src=dppu, **kw),
+                           20),
+                       bound_ms=b_ms, bound_by=b_by,
+                       plain_ms=cuda_ms(torch, functools.partial(
+                           fused_ref, *args[:3], qs.reshape(()), **kw), 5),
+                       library_ms=library_ms, library_k=Kp)
+            row["bound_share"] = b_ms / row["kernel_ms"]
+            conv_rows.append(row)
+            emit({"phase": "kernel", "kernel": "fused_decode", **row})
+        del ops
     torch.cuda.synchronize()
-    return rows, sched_rows, max_err
+    return rows, sched_rows, conv_rows, max_err
 
 
 # ------------------------------------------------ qmatmul, protected_mm, inject
@@ -739,6 +827,26 @@ def full_model(torch):
                 policy=ft.get_policy("crt3", ber=1e-4, weight_faults=False),
                 init_s=init_s,
                 n_params=sum(t.numel() for t in _leaves(params)))
+
+
+class PrefillTimer:
+    """Stands in for an Engine's model during one generation: forwards
+    everything, and times each prefill on the host's clock, synchronized
+    on both ends (``ms``: the last one)."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.ms = torch, model, None
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.model.prefill(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.ms = 1e3 * (time.perf_counter() - t0)
+        return out
 
 
 def _timed_prefill(torch, engine, batch):
@@ -1134,10 +1242,11 @@ def phase_scan(torch, m, backend, eager):
     capture; with the capture's recorded calls and the replays, the
     generation launched it as often as the python loop's.  A second
     generation on the same Engine only loads the buffers and replays: its
-    decode tokens/s take the python phase's formula (its prefill ms, from
-    the engine phase, off the generation's wall time).  One replay is
-    also timed alone, and profiled: it runs the protected kernel's
-    kernels once per projection (fused_decode: GEMM and epilogue)."""
+    decode tokens/s take the python phase's formula, with that
+    generation's own prefill (timed inside it) off its wall time.  One
+    replay is also timed alone, and profiled: it runs the protected
+    kernel's kernels once per projection (fused_decode: GEMM and
+    epilogue)."""
     from repro_torch.kernels.fused_decode import kernel as fd_kernel
     from repro_torch.kernels.protected_mm import kernel as pm_kernel
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -1181,16 +1290,19 @@ def phase_scan(torch, m, backend, eager):
     kept = torch.cuda.memory_allocated() - allocated0
     static = sum(t.numel() * t.element_size() for layer in
                  step.caches.values() for t in layer["attn"].values())
+    timer = PrefillTimer(torch, engine.model)
+    engine.model = timer
     t0 = time.perf_counter()
     again = engine.generate(batch, seed=0)  # loads and replays only
     torch.cuda.synchronize()
     replay_generate_s = time.perf_counter() - t0
+    engine.model = timer.model
     if engine._scan_step is not step or graph.replays != 2 * NEW - 1:
         raise AssertionError("the second generation did not replay the "
                              "first one's graph")
     if not torch.equal(again, toks):
         raise AssertionError(f"{backend} scan: a second generation differs")
-    tps = B * NEW / (replay_generate_s - eager["prefill_ms"] / 1e3)
+    tps = B * NEW / (replay_generate_s - timer.ms / 1e3)
     event_ms, wall_ms = _replay_times(torch, graph, lambda: None)
     prof = _replay_profile(torch, graph, lambda: None,
                            "fused_decode_" if fused else "protected_mm_kernel",
@@ -1201,7 +1313,8 @@ def phase_scan(torch, m, backend, eager):
           "ber": 1e-4, "ft_t": None if fused else eager["ft_t"],
           "capture_s": graph.capture_s, "generate_s": generate_s,
           "replay_generate_s": replay_generate_s,
-          "prefill_ms": eager["prefill_ms"],
+          "prefill_ms": timer.ms,
+          "python_phase_prefill_ms": eager["prefill_ms"],
           "decode_tokens_per_s": tps,
           "python_decode_tokens_per_s": eager["decode_tokens_per_s"],
           "replay_wall_ms": wall_ms, "replay_event_ms": event_ms,
@@ -1645,6 +1758,256 @@ def phase_faults(torch):
           "reduced_scheduler_faulty_backends_and_layouts_equal": True})
 
 
+def _checked_fused_decode(torch, seen):
+    """A stand-in for the fused backend's call of the kernel: each launch
+    held bitwise to ``fused_ref`` on the same operands, on the card, and
+    counted in ``seen`` by (M, K, N, dppu_src)."""
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.kernels.fused_decode.ref import fused_ref
+    real = fops.fused_decode
+
+    def checked(xq, wq, oflips, q_scale, **kw):
+        y, t = real(xq, wq, oflips, q_scale, **kw)
+        imp = kw.get("imp")
+        yr, tr = fused_ref(xq, wq, oflips, q_scale.reshape(()),
+                           per_row=kw["per_row"], wflips=kw.get("wflips"),
+                           wq_clean=kw.get("wq_clean"),
+                           dflips=kw.get("dflips"),
+                           imp=None if imp is None else imp.reshape(-1))
+        shape = tuple(xq.shape) + (wq.shape[1],)
+        if not (torch.equal(y.to(torch.int32), yr) and torch.equal(
+                t.reshape(-1), torch.broadcast_to(tr.reshape(-1, 1),
+                                                  t.shape).reshape(-1))):
+            raise AssertionError(
+                f"fused_decode launch {sum(seen.values())} at {shape} "
+                f"{kw['dppu_src']} differs from fused_ref")
+        seen[shape + (kw["dppu_src"],)] += 1
+        return y, t
+    return real, checked
+
+
+def _site_inputs(torch, oracle, policy):
+    """The oracle's accuracy under ``policy`` and the int8 input of every
+    protected GEMM of it, in call order: [(site, xq, x)] on the CPU."""
+    import repro_torch.ft as ftmod
+    from repro_torch.core import quantization as Q
+    from repro_torch.models import common
+    calls, site = [], [None]
+    real_pl, real_sk = ftmod.protect_linear, common.FTCtx.site_key
+
+    def site_key(self, name):
+        site[0] = name
+        return real_sk(self, name)
+
+    def protect_linear(key, x, w, pol, important=None, **kw):
+        calls.append((site[0], Q.quantize(x)[0].to(torch.int8).cpu(),
+                      x.cpu()))
+        return real_pl(key, x, w, pol, important, **kw)
+    ftmod.protect_linear, common.FTCtx.site_key = protect_linear, site_key
+    try:
+        acc = oracle.accuracy(policy)
+    finally:
+        ftmod.protect_linear, common.FTCtx.site_key = real_pl, real_sk
+    return acc, calls
+
+
+def phase_dse(torch):
+    """The paper's cross-layer DSE on the card (Algorithms 1-3): the
+    reduced VGG (CNNConfig(): channels 16/32, 16x16 images, 8 classes)
+    trained by trained_cnn("vgg", steps=250) on the card, and CnnOracle at
+    its defaults (384 images, 3 fault draws, noise 1.6), every protected
+    conv and the head one fused_decode launch (M 98,304 / 24,576 / 384,
+    K 9-512, N 8-32, global t).  Lines:
+
+      train: its seconds and accuracies (the trained model's must be > 0.6,
+        the reference test's bar; chance is 0.125);
+      check: one accuracy each under cl and crt2 at BER 2e-3 and arch with
+        s0_c0 protected, every fused_decode launch held bitwise to
+        fused_ref on the card (5 sites x 3 draws each); the same three on
+        the reference backend: equal exactly;
+      figs: layer_sensitivity and cumulative_protection at BER 2e-3 (Figs.
+        5-6) and the 7 paper policies' accuracies there (Fig. 7);
+      optimize: the DSE of examples/crosslayer_dse.py (VGG16's GEMMs for
+        the perf/IO models, acc >= 0.97 x clean, perf and bandwidth loss
+        <= 10%, BER 1e-3, 16 evaluations in rounds of 8, seed 0): its best
+        policy's Table-I fields, area overhead, evaluations, pruned count,
+        each candidate's accuracy, area, perf and bandwidth loss, oracle
+        seconds per evaluation, and fused_decode's launches (its counter
+        zeroed just before, read just after) and their device time; the
+        best must be feasible, and it (or, where no candidate is, the most
+        accurate one) must re-evaluate to the accuracy the DSE recorded;
+      cpu: a recorded line, not a gate: the cl accuracy at one fault draw
+        on the card (fused) and on the CPU (reference backend; the card's
+        parameters and images copied over), and the first protected GEMM
+        whose int8 input differs between them, if any.
+    Returns the DSE's launches and device ms, and its launches per shape.
+    """
+    from repro_torch import ft
+    from repro_torch.core import bayesopt as Bo
+    from repro_torch.core.evaluate import CnnOracle, trained_cnn
+    from repro_torch.core.pipeline import optimize
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.kernels.fused_decode import ops as fops
+    t0 = time.perf_counter()
+    oracle = trained_cnn("vgg", steps=DSE["train_steps"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    clean = oracle.accuracy(None)
+    cfg = oracle.cfg
+    emit({"phase": "dse", "step": "train", "arch": cfg.arch,
+          "channels": list(cfg.channels), "hw": cfg.hw,
+          "n_classes": cfg.n_classes, "steps": DSE["train_steps"],
+          "train_s": train_s, "train_accuracy": oracle.clean_acc,
+          "clean_accuracy": clean, "n_eval": oracle.n_eval,
+          "n_rep": oracle.n_rep, "noise": oracle.noise})
+    if not oracle.clean_acc > 0.6:
+        raise AssertionError(f"the trained CNN reached {oracle.clean_acc}, "
+                             "not above 0.6")
+    sites = len(conv_shapes(oracle.n_eval))
+
+    # every launch of three accuracies against the plain version
+    ber = DSE["check_ber"]
+    cases = (("cl", ft.get_policy("cl", ber=ber), None),
+             ("arch", ft.get_policy("arch", ber=ber), {"s0_c0"}),
+             ("crt2", ft.get_policy("crt2", ber=ber), None))
+    seen = collections.Counter()
+    real, checked = _checked_fused_decode(torch, seen)
+    fops.fused_decode = checked
+    try:
+        fused = {n: oracle.accuracy(p, protected_layers=pl)
+                 for n, p, pl in cases}
+    finally:
+        fops.fused_decode = real
+    n_checked = sum(seen.values())
+    if n_checked != len(cases) * sites * oracle.n_rep:
+        raise AssertionError(f"{n_checked} fused_decode launches checked, "
+                             f"expected {len(cases) * sites * oracle.n_rep}")
+    oracle.backend = "reference"
+    try:
+        refb = {n: oracle.accuracy(p, protected_layers=pl)
+                for n, p, pl in cases}
+    finally:
+        oracle.backend = "fused"
+    if refb != fused:
+        raise AssertionError(f"fused accuracies {fused} differ from the "
+                             f"reference backend's {refb}")
+    emit({"phase": "dse", "step": "check", "ber": ber,
+          "accuracy": fused, "reference_backend_equal": True,
+          "launches_checked": n_checked,
+          "shapes": sorted([list(k[:3]), k[3], v] for k, v in seen.items())})
+
+    # Figs. 5-7
+    t0 = time.perf_counter()
+    sens = oracle.layer_sensitivity(ber)
+    curve = oracle.cumulative_protection(ber)
+    paper = {n: oracle.accuracy(p.with_ber(ber))
+             for n, p in ft.paper_policies().items()}
+    emit({"phase": "dse", "step": "figs", "ber": ber,
+          "layer_sensitivity": sens, "cumulative_protection": curve,
+          "paper_policies": paper, "figs_s": time.perf_counter() - t0})
+
+    # the DSE (Algorithm 3 over Algorithms 1-2 and the oracles)
+    cons = Bo.Constraints(acc_min=0.97 * clean, perf_max=0.10, bw_max=0.10)
+    timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+    real_lib = kernel._lib
+    kernel._lib = lambda: timer
+    kernel.fused_decode.launches = 0        # the path's run starts here
+    t0 = time.perf_counter()
+    try:
+        res = optimize(oracle.accuracy, vgg16_gemms(), cons, DSE["ber"],
+                       iter_max_step=DSE["iter_max_step"], seed=0,
+                       batch_size=DSE["batch_size"],
+                       acc_oracle_batch=oracle.accuracy_batch)
+        torch.cuda.synchronize()
+    finally:
+        kernel._lib = real_lib
+    dse_s = time.perf_counter() - t0
+    launches = kernel.fused_decode.launches  # ... and ends here
+    dse_ms = timer.ms()
+    evals = res.dse.evaluations
+    faulty = len(res.dse.history)           # every candidate: BER 1e-3
+    want = faulty * sites * oracle.n_rep
+    if launches != want or len(timer.events) != launches:
+        raise AssertionError(f"the DSE launched fused_decode {launches} "
+                             f"times ({len(timer.events)} timed), expected "
+                             f"{want} ({sites} sites x {oracle.n_rep} draws "
+                             f"x {faulty} candidates)")
+    row = {"phase": "dse", "step": "optimize", "ber": DSE["ber"],
+           "acc_min": cons.acc_min, "perf_max": cons.perf_max,
+           "bw_max": cons.bw_max, "iter_max_step": DSE["iter_max_step"],
+           "batch_size": DSE["batch_size"], "evaluations": evals,
+           "pruned": res.dse.pruned, "dse_s": dse_s,
+           "oracle_s_per_evaluation": dse_s / max(evals, 1),
+           "launches": launches, "launches_per_evaluation":
+               sites * oracle.n_rep, "fused_decode_ms": dse_ms,
+           "feasible_found": res.policy is not None,
+           "history_acc_area_perf_bw": [
+               [r.acc, r.area, r.perf_loss, r.bw_loss]
+               for _, r in res.dse.history]}
+    # the best, or the most accurate candidate where none is feasible,
+    # evaluated again alone: the DSE's batched lanes (canonical structure,
+    # knobs through dyn) and a single accuracy give the same number
+    if res.policy is not None:
+        best = res.dse.best_eval
+        if not best.feasible(cons):
+            raise AssertionError(f"the DSE's best {best} is not feasible")
+        pol, recorded = res.policy, best.acc
+        row.update(area_overhead=res.area_overhead,
+                   perf_loss=best.perf_loss, bw_loss=best.bw_loss)
+    else:
+        from repro_torch.core.pipeline import _policy_from_cfg
+        cand, ev = max(res.dse.history, key=lambda h: h[1].acc)
+        pol, recorded = _policy_from_cfg(cand, DSE["ber"]), ev.acc
+    again = oracle.accuracy(pol)
+    if again != recorded:
+        raise AssertionError(f"{pol} re-evaluates to {again}, the DSE "
+                             f"recorded {recorded}")
+    row.update(best={**dataclasses.asdict(pol.algorithm),
+                     **dataclasses.asdict(pol.arch),
+                     **dataclasses.asdict(pol.circuit)},
+               best_is=("the DSE's best" if res.policy is not None
+                        else "the most accurate candidate (none feasible)"),
+               best_accuracy=recorded, best_accuracy_again=again)
+    emit(row)
+
+    # the card against the CPU, at one fault draw (a record, not a gate)
+    cl = ft.get_policy("cl", ber=ber)
+    one = CnnOracle(oracle.params, cfg, n_rep=1, device="cuda")
+    card_acc, card_calls = _site_inputs(torch, one, cl)
+    cpu = CnnOracle(_to(oracle.params, "cpu"), cfg, n_rep=1,
+                    backend="reference", device="cpu")
+    imgs_equal = torch.equal(cpu._imgs, one._imgs.cpu())
+    imgs_ulps = int((cpu._imgs.view(torch.int32).to(torch.int64)
+                     - one._imgs.cpu().view(torch.int32).to(torch.int64))
+                    .abs().max())
+    cpu._imgs = one._imgs.cpu()
+    cpu_acc, cpu_calls = _site_inputs(torch, cpu, cl)
+    first = None
+    for i, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        if a[0] != b[0] or not torch.equal(a[1], b[1]):
+            d = (a[2].view(torch.int32).to(torch.int64)
+                 - b[2].view(torch.int32).to(torch.int64)).abs()
+            first = dict(call=i, site=[a[0], b[0]],
+                         int8_differences=int((a[1] != b[1]).sum()),
+                         x_max_ulp_difference=int(d.max()))
+            break
+    emit({"phase": "dse", "step": "cpu", "policy": "cl", "ber": ber,
+          "n_rep": 1, "card_accuracy": card_acc, "cpu_accuracy": cpu_acc,
+          "equal": card_acc == cpu_acc, "calls": [len(card_calls),
+                                                  len(cpu_calls)],
+          "cpu_images_equal_card": imgs_equal,
+          "cpu_images_max_ulp_difference": imgs_ulps,
+          "first_differing_int8_input": first})
+    per_shape = collections.Counter()
+    for _, shape in conv_shapes(oracle.n_eval):
+        per_shape[shape] += faulty * oracle.n_rep
+    del oracle, one, cpu
+    trained_cnn.cache_clear()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=dse_ms, per_shape=per_shape,
+                evaluations=evals)
+
+
 def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
                        temperature=0.0, loop="scan"):
     """The reduced model through the Scheduler: 5 requests on 2 slots, two
@@ -1681,9 +2044,9 @@ def _totals(rows, weight):
 
 
 def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
-                 sched):
+                 sched, dse):
     """One entry for each of the port's four kernels; fused_decode's also
-    holds its scheduler path's run."""
+    holds its scheduler path's run and its DSE path's."""
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
@@ -1692,7 +2055,7 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
            "bound_ms, library_ms and kernel_phase_ms from the kernel "
            "phase's per-shape times x launches; bound_share = bound_ms / "
            "kernel_phase_ms")
-    rows, sched_rows, err, launches, ms = fused
+    rows, sched_rows, conv_rows, err, launches, ms = fused
     out = [dict(name="fused_decode", source=src.format("fused_decode"),
                 replaces=rep.format("fused_decode", 189), launches=launches,
                 max_abs_err=err, ms=ms,
@@ -1716,6 +2079,18 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                        "per-row t): ms from CUDA events around each launch; "
                        "plain, bound, library and kernel-phase sums from "
                        "the kernel phase's scheduler rows x launches"))
+    path_rows = [r for r in conv_rows if r["mode"] == "global t, no DPPU"]
+    tot = _totals(path_rows, lambda r: dse["per_shape"][tuple(r["shape"])])
+    out[0].update(
+        dse_launches=dse["launches"], dse_ms=dse["ms"],
+        **{f"dse_{k}": v for k, v in tot.items()},
+        dse_per=("the dse phase's optimize run (CnnOracle over the reduced "
+                 f"VGG, {dse['evaluations']} candidates, 5 conv/head GEMMs "
+                 "x 3 fault draws each, global t, no DPPU: the masks never "
+                 "reach the datapath, as in the reference): ms from CUDA "
+                 "events around each launch; plain, bound, library and "
+                 "kernel-phase sums from the kernel phase's conv rows in "
+                 "that mode x launches; library_ms pads K = 9 to 16"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
@@ -1768,7 +2143,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     seconds["phase_build"] = time.perf_counter() - t0
-    rows, sched_rows, max_err = run(phase_kernels)
+    rows, sched_rows, conv_rows, max_err = run(phase_kernels)
     dla, dla_err = run(phase_dla_kernels)
     entry, entry_bound = run(phase_entry_points)
     m = run(full_model)
@@ -1781,12 +2156,13 @@ def main() -> int:
     del m
     torch.cuda.empty_cache()
     run(phase_faults)
+    dse = run(phase_dse)
     run(phase_split)
     emit({"phase": "seconds", **seconds})
-    emit(kernels_line(name, smi, (rows, sched_rows, max_err, fused["launches"],
-                                  fused["ms"]), dla, dla_err,
-                      (pallas["launches"], pallas["ms"]), entry,
-                      entry_bound, sched))
+    emit(kernels_line(name, smi, (rows, sched_rows, conv_rows, max_err,
+                                  fused["launches"], fused["ms"]), dla,
+                      dla_err, (pallas["launches"], pallas["ms"]), entry,
+                      entry_bound, sched, dse))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,6 +11,10 @@ reads both of the reference's layouts:
 
 The port keeps one dict per layer either way; which site names key the
 fault draws follows ``cfg.unroll`` (``repro_torch.models.transformer``).
+
+``cnn_params_from_jax(tree)`` takes the reference's CNN tree
+(``repro.models.cnn.init_cnn`` / ``train_cnn``: ``{"s0_c0": {"w", "b"},
+..., "head": {"w", "b"}}``) as it is, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -52,3 +56,10 @@ def params_from_jax(tree, cfg, device=None) -> dict:
                 i += 1
     out["layers"] = layers
     return out
+
+
+def cnn_params_from_jax(tree, device=None) -> dict:
+    """The reference's CNN parameter tree as the port's, same names and
+    layouts (im2col weights (9 * C_in, C_out), biases (C_out,))."""
+    dev = _device.resolve(device)
+    return _map(tree, lambda a: _tensor(a, dev))

@@ -17,6 +17,15 @@ carries its own copy of the generator, bit for bit:
   * ``uniform``: ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus 1,
     then scaled to ``[minval, maxval)`` (jax ``_uniform``);
   * ``bernoulli(key, p, shape)``: ``uniform(key, shape) < float32(p)``;
+  * ``randint(key, shape, lo, hi)``: two words per draw from ``split(key)``,
+    reduced modulo the span in uint32 arithmetic (jax ``_randint``), so
+    bitwise;
+  * ``normal(key, shape)``: ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
+    ``[nextafter(-1, 0), 1)`` (jax ``_normal_real``).  ``erfinv`` is XLA's
+    (Giles' single-precision polynomial), evaluated here in the same steps
+    with its Horner steps as fused multiply-adds, as XLA compiles them; its
+    ``log1p`` is each framework's own, so a draw may sit up to 3 ulps from
+    JAX's (1% of draws differ; tests/test_torch_cnn.py states the bound);
   * ``gumbel``: ``-log(-log(uniform(key, shape, tiny, 1)))`` (jax's "low"
     mode), and ``categorical``: the argmax of gumbel noise plus logits (jax's
     ``replace=True`` branch).
@@ -35,21 +44,23 @@ _PARITY = 0x1BD11BDA
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & MASK32) | (x >> (32 - r))
+    return ((x << r).bitwise_and_(MASK32)).bitwise_or_(x >> (32 - r))
 
 
 def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 hash (20 rounds) on int64 words; all four arguments
-    broadcast together.  Returns the two output words."""
+    broadcast together.  Returns the two output words.  The rounds update
+    the two words in place (they are this function's own tensors), which
+    saves an allocation per operation."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x1 = (x1 + ks[0]) & MASK32
-    x2 = (x2 + ks[1]) & MASK32
+    x1, x2 = (t.contiguous() for t in torch.broadcast_tensors(
+        (x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32))
     for i in range(5):
         for r in _ROT[i % 2]:
-            x1 = (x1 + x2) & MASK32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            x1.add_(x2).bitwise_and_(MASK32)
+            x2 = _rotl(x2, r).bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x2.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
     return x1, x2
 
 
@@ -175,3 +186,60 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     Returns int64 indices."""
     noise = gumbel(key, logits.shape[key.dim() - 1:])
     return torch.argmax(noise + logits, dim=-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 (the
+    reference's default integer type), as int64 values: the high and low
+    words of each draw, from ``split(key)``, reduced modulo the span in
+    uint32 arithmetic."""
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError("randint bounds outside int32")
+    k = split(key, 2)
+    hi, lo = bits(k[..., 0, :], shape), bits(k[..., 1, :], shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & MASK32) % span    # uint32 product wraps
+    off = ((hi % span) * mult & MASK32) + lo % span
+    return minval + (off & MASK32) % span
+
+
+# XLA's single-precision erf_inv (M. Giles, "Approximating the erfinv
+# function"): Horner coefficients, highest power first, for w < 5 and above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``lax.erf_inv`` as XLA computes it: ``w = -log1p(-x*x)``,
+    a degree-8 polynomial in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``, times
+    ``x``; +-inf at +-1."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(
+            lt, torch.full((), _ERFINV_LT5[i], dtype=torch.float32,
+                           device=x.device),
+            torch.full((), _ERFINV_GE5[i], dtype=torch.float32,
+                       device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    inf = torch.full((), torch.inf, dtype=torch.float32, device=x.device)
+    return torch.where(x.abs() == 1, x * inf, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) * erfinv(u)``,
+    ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    u = uniform(key, shape, lo, 1.)
+    sqrt2 = torch.full((), float(np.float32(np.sqrt(2))), dtype=torch.float32,
+                       device=key.device)
+    return sqrt2 * erfinv(u)

@@ -11,6 +11,8 @@ to even, as ``jnp.round`` does.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.device import scalar
@@ -23,6 +25,14 @@ OUT_BITS = 8
 # |int8 * int8| <= 2**14, so a K-long dot product stays below 2**31 (the
 # reference's int32 accumulator) for K below this
 MAX_K = 1 << 17
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    bits: int = 8
+    acc_bits: int = ACC_BITS
+    q_scale: int = 0          # minimum allowed truncation LSB (paper's Q_scale)
+    per_channel: bool = True  # per-output-channel weight scales
 
 
 def quantize(x: torch.Tensor, bits: int = 8, axis=None):
@@ -39,6 +49,10 @@ def quantize(x: torch.Tensor, bits: int = 8, axis=None):
         (), float(qmax), dtype=amax.dtype, device=amax.device)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
     return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -100,3 +114,27 @@ def qmatmul(xq: torch.Tensor, wq: torch.Tensor, q_scale=0):
     acc = saturate(int_matmul(xq, wq))
     t = choose_trunc_lsb(acc.abs().amax(), q_scale=q_scale)
     return truncate_acc(acc, t), t
+
+
+def fake_quant_linear(x: torch.Tensor, w: torch.Tensor, q_scale: int = 0):
+    """Float-in/float-out linear computed through the quantized DLA datapath.
+
+    Returns (y, aux): aux carries the integer intermediates (xq, wq, t) and
+    the scales (sx, sw).  ``2**t`` is formed from an integer shift, exactly
+    as the reference's ``2.0 ** t``.
+    """
+    xq, sx = quantize(x, axis=None)
+    wq, sw = quantize(w, axis=None)
+    yq, t = qmatmul(xq, wq, q_scale)
+    scale = sx * sw * (torch.ones_like(t) << t).to(torch.float32)
+    return yq.to(torch.float32) * scale, dict(xq=xq, wq=wq, t=t, sx=sx,
+                                              sw=sw)
+
+
+def quant_error(x: torch.Tensor, q_scale: int) -> torch.Tensor:
+    """Relative RMS error introduced by quantizing through the constrained
+    datapath (paper Fig. 11, Q_scale vs accuracy)."""
+    w = torch.eye(x.shape[-1], dtype=torch.float32, device=x.device)
+    y, _ = fake_quant_linear(x, w, q_scale=q_scale)
+    return (torch.sqrt(torch.mean((y - x) ** 2))
+            / (torch.sqrt(torch.mean(x ** 2)) + 1e-9))

@@ -13,10 +13,11 @@ Counterpart of ``repro.ft``:
 """
 from repro_torch.ft.policy import (AlgorithmLayer, ArchLayer,  # noqa: F401
                                    CircuitLayer, ProtectionPolicy)
-from repro_torch.ft.registry import get_policy, register_policy  # noqa: F401
+from repro_torch.ft.registry import (get_policy, list_policies,  # noqa: F401
+                                     paper_policies, register_policy)
 # compat and api import after policy/registry are bound
 # isort: split
-from repro_torch.ft.compat import as_policy  # noqa: F401
+from repro_torch.ft.compat import as_policy, from_ftconfig  # noqa: F401
 # isort: split
 from repro_torch.ft.api import (BACKENDS, calibrate_t,  # noqa: F401
                                 protect_linear)

@@ -73,6 +73,19 @@ class ProtectionPolicy:
         """Whether this policy consumes Algorithm-1 importance masks."""
         return self.arch.recompute
 
+    # -------------------------------------------------------- derivation --
+    @property
+    def perf_kind(self) -> str:
+        """The perf/IO-model family this policy belongs to, derived from the
+        layer structure."""
+        if self.arch.whole_layer_tmr:
+            return "alg" if self.arch.temporal else "arch"
+        if self.arch.recompute:
+            return "cl"
+        if self.circuit.ib_th > 0 or self.circuit.nb_th > 0:
+            return "crt"
+        return "base"
+
     # ------------------------------------------------------------- tuning --
     def tune(self, **overrides) -> "ProtectionPolicy":
         """Return a copy with fields replaced, routing each name to the

@@ -3,7 +3,7 @@
 All seven comparison designs of the paper (Sec. IV) are registered here at
 import time; a new design plugs in with one ``register_policy`` call.
 
-Counterpart of ``repro.ft.registry``: the same seven designs.
+Counterpart of ``repro.ft.registry``: the same seven designs and functions.
 """
 from __future__ import annotations
 
@@ -13,13 +13,15 @@ from repro_torch.ft.policy import (AlgorithmLayer, ArchLayer, CircuitLayer,
 _REGISTRY: dict[str, ProtectionPolicy] = {}
 
 
-def register_policy(policy: ProtectionPolicy) -> ProtectionPolicy:
-    """Register ``policy`` under ``policy.name``."""
-    key = policy.name
+def register_policy(policy: ProtectionPolicy, *, name: str | None = None,
+                    overwrite: bool = False) -> ProtectionPolicy:
+    """Register ``policy`` under ``name`` (default: ``policy.name``)."""
+    key = name or policy.name
     if not key:
         raise ValueError("policy needs a non-empty name to be registered")
-    if key in _REGISTRY:
-        raise ValueError(f"policy {key!r} already registered")
+    if key in _REGISTRY and not overwrite:
+        raise ValueError(f"policy {key!r} already registered "
+                         "(pass overwrite=True to replace)")
     _REGISTRY[key] = policy
     return policy
 
@@ -34,6 +36,21 @@ def get_policy(name: str, **tune) -> ProtectionPolicy:
         raise KeyError(f"unknown protection policy {name!r}; registered: "
                        f"{sorted(_REGISTRY)}") from None
     return policy.tune(**tune) if tune else policy
+
+
+def list_policies() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def paper_policies(cl: ProtectionPolicy | None = None
+                   ) -> dict[str, ProtectionPolicy]:
+    """The paper's comparison set; ``cl`` optionally replaces the TMR-CL
+    entry with a DSE-optimized instance."""
+    out = {n: get_policy(n) for n in
+           ("base", "crt1", "crt2", "crt3", "arch", "alg", "cl")}
+    if cl is not None:
+        out["cl"] = cl
+    return out
 
 
 def _register_paper_designs() -> None:

@@ -29,7 +29,7 @@
 // Design.  The TPU kernel holds the whole (M, N) accumulator in VMEM and
 // walks K in order.  Here blocks run in parallel and in no order, and t
 // needs the max over a row or over the whole output, so one call is a
-// memset of the row maxima and two launches:
+// memset of the row maxima and of the global max, and two launches:
 //
 //   launch 1 (GEMM, dla::mma_tile): the plan (kernels/plan.py::gemm_plan)
 //     tiles the output 16 x 64 at M <= 16 and 64 x 128 above, and splits K
@@ -45,14 +45,17 @@
 //     after a cluster barrier each block sums its slice of the tile over
 //     the cluster's shared memory (dla::park, dla::Slice), stores the sums
 //     unsaturated, and max-es the rows' |saturate24(acc)| in shared memory,
-//     then once per row and block into the row maxima (atomicMax).
+//     then once per row and block into the row maxima (atomicMax), and
+//     once per warp of those rows into the global max.
 //     Per-row weight flips (off the serving path) keep their own GEMM: every
 //     row has its own B operand, so a thread owns one (m, n) and builds the
 //     faulty weight from the shared weight and the row's flip word as it
 //     walks K.
-//   launch 2 (epilogue): one block per (row, 256 columns) reduces the row
-//     maxima to t (its own row, or all rows for the global t), then
-//     saturates, truncates, XORs, selects and sign-extends into int8.
+//   launch 2 (epilogue): one thread per output element, in row-major
+//     order, reads its row's max (per-row t) or the global max (one word,
+//     so the call reads the maxima O(M) times: conv-shaped calls have M up
+//     to 98,304 rows), forms t, then saturates, truncates, XORs, selects
+//     and sign-extends into int8.
 //
 // Exactness.  Every partial and every total is an exact int32: |acc| <=
 // 128 * 128 * K < 2^31 for K < 2^17, which the wrapper checks, so the
@@ -73,8 +76,8 @@ __global__ void __launch_bounds__(C::kThreads)
 fused_decode_gemm(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                   const int8_t* __restrict__ w2, int32_t* __restrict__ acc_out,
                   int32_t* __restrict__ acc2_out,
-                  int32_t* __restrict__ rowmax, int M, int N, int K, int kc,
-                  int vec_x, int vec_w) {
+                  int32_t* __restrict__ rowmax, int32_t* __restrict__ gmax,
+                  int M, int N, int K, int kc, int vec_x, int vec_w) {
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
   const int k0 = blockIdx.z * kc, k1 = min(k0 + kc, K);
   int acc[C::MT][C::NT][4], acc2[C::MT][C::NT][4];
@@ -109,8 +112,14 @@ fused_decode_gemm(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   }
   __syncthreads();
-  if (threadIdx.x < sl.end / C::BN && rmax[threadIdx.x] > 0)
-    atomicMax(rowmax + m0 + threadIdx.x, rmax[threadIdx.x]);
+  // the rows' maxima, then their max over each warp into the global max
+  // (whole warps, for the shuffle: BM is 16 or 64)
+  if (threadIdx.x < (C::BM + 31) / 32 * 32) {
+    const int r = threadIdx.x < sl.end / C::BN ? rmax[threadIdx.x] : 0;
+    if (r > 0) atomicMax(rowmax + m0 + threadIdx.x, r);
+    const int v = dla::warp_max(r);
+    if ((threadIdx.x & 31) == 0 && v > 0) atomicMax(gmax, v);
+  }
   sl.done();
 }
 
@@ -123,7 +132,8 @@ fused_decode_gemm_perrow(const int8_t* __restrict__ x,
                          const int32_t* __restrict__ wflips,
                          int32_t* __restrict__ acc_out,
                          int32_t* __restrict__ acc2_out,
-                         int32_t* __restrict__ rowmax, int M, int N, int K) {
+                         int32_t* __restrict__ rowmax,
+                         int32_t* __restrict__ gmax, int M, int N, int K) {
   const int m = blockIdx.x, n = blockIdx.y * dla::kThreads + threadIdx.x;
   int a = 0, a2 = 0;
   if (n < N) {
@@ -141,44 +151,33 @@ fused_decode_gemm_perrow(const int8_t* __restrict__ x,
     if (kDual) acc2_out[o] = dla::saturate24(a2);
   }
   const int rmax = dla::warp_max(n < N ? abs(a) : 0);
-  if ((threadIdx.x & 31) == 0) atomicMax(rowmax + m, rmax);
+  if ((threadIdx.x & 31) == 0 && rmax > 0) {
+    atomicMax(rowmax + m, rmax);
+    atomicMax(gmax, rmax);
+  }
 }
 
 __global__ void __launch_bounds__(dla::kThreads)
 fused_decode_epilogue(const int32_t* __restrict__ acc,
                       const int32_t* __restrict__ acc_d,
                       const int32_t* __restrict__ rowmax,
+                      const int32_t* __restrict__ gmax,
                       const int32_t* __restrict__ oflips,
                       const int32_t* __restrict__ dflips,
                       const int32_t* __restrict__ imp,
                       const int32_t* __restrict__ q_scale,
                       int8_t* __restrict__ y, int32_t* __restrict__ t_out,
                       int M, int N, int per_row) {
-  __shared__ int red[dla::kThreads / 32];
-  const int m = blockIdx.x;
-  int amax;
-  if (per_row) {
-    amax = rowmax[m];
-  } else {
-    int v = 0;
-    for (int i = threadIdx.x; i < M; i += dla::kThreads) v = max(v, rowmax[i]);
-    v = dla::warp_max(v);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    v = 0;
-#pragma unroll
-    for (int i = 0; i < dla::kThreads / 32; ++i) v = max(v, red[i]);
-    amax = v;
-  }
+  const size_t o = (size_t)blockIdx.x * dla::kThreads + threadIdx.x;
+  if (o >= (size_t)M * N) return;
+  const int m = (int)(o / N), n = (int)(o - (size_t)m * N);
+  const int amax = per_row ? rowmax[m] : gmax[0];
   // bit_length(max(a, 1)), the reference's popcount over 1 << b thresholds
   const int need = 32 - __clz(max(amax, 1));
   int t = max(need - (dla::kOutBits - 1), 0);
   t = min(max(t, q_scale[0]), dla::kAccBits - dla::kOutBits);
-  if (blockIdx.y == 0 && threadIdx.x == 0) t_out[m] = t;
+  if (n == 0) t_out[m] = t;
 
-  const int n = blockIdx.y * dla::kThreads + threadIdx.x;
-  if (n >= N) return;
-  const size_t o = (size_t)m * N + n;
   int u = (dla::trunc8(dla::saturate24(acc[o]), t) & 0xFF) ^ oflips[o];
   if (acc_d != nullptr && imp[n] != 0)
     u = (dla::trunc8(dla::saturate24(acc_d[o]), t) & 0xFF) ^ dflips[o];
@@ -191,7 +190,7 @@ extern "C" {
 
 // dppu: 0 none, 1 reuse (recompute == acc), 2 separate accumulator from w2.
 // wflips != nullptr selects the per-row weight-flip GEMM.  scratch holds
-// int32 rowmax[M], acc[M * N] and, for dppu 2, acc2[M * N];
+// int32 gmax[1], rowmax[M], acc[M * N] and, for dppu 2, acc2[M * N];
 // (bm, bn, kc, splits) is the launch plan of kernels/plan.py::gemm_plan.
 // Returns the CUDA error of the memset and the launches (0 on success); the
 // caller raises on anything else.
@@ -205,10 +204,11 @@ int fused_decode_launch(const void* x, const void* w, const void* w2,
   if (M == 0 || N == 0) return 0;
   if (!dla::plan_ok(M, N, K, bm, bn, kc, splits)) return cudaErrorInvalidValue;
   const bool dual = dppu == 2;
-  auto rowmax = static_cast<int32_t*>(scratch);
+  auto gmax = static_cast<int32_t*>(scratch);
+  int32_t* rowmax = gmax + 1;
   int32_t* acc = rowmax + M;
   int32_t* acc2 = dual ? acc + (size_t)M * N : nullptr;
-  cudaError_t err = cudaMemsetAsync(rowmax, 0, sizeof(int32_t) * M, s);
+  cudaError_t err = cudaMemsetAsync(gmax, 0, sizeof(int32_t) * (M + 1), s);
   if (err != cudaSuccess) return err;
   auto xp = static_cast<const int8_t*>(x);
   auto wp = static_cast<const int8_t*>(w);
@@ -217,23 +217,24 @@ int fused_decode_launch(const void* x, const void* w, const void* w2,
     dim3 grid(M, (N + dla::kThreads - 1) / dla::kThreads);
     auto wf = static_cast<const int32_t*>(wflips);
     if (dual)
-      fused_decode_gemm_perrow<true><<<grid, dla::kThreads, 0, s>>>(xp, wp, w2p, wf, acc, acc2, rowmax, M, N, K);
+      fused_decode_gemm_perrow<true><<<grid, dla::kThreads, 0, s>>>(xp, wp, w2p, wf, acc, acc2, rowmax, gmax, M, N, K);
     else
-      fused_decode_gemm_perrow<false><<<grid, dla::kThreads, 0, s>>>(xp, wp, w2p, wf, acc, acc2, rowmax, M, N, K);
+      fused_decode_gemm_perrow<false><<<grid, dla::kThreads, 0, s>>>(xp, wp, w2p, wf, acc, acc2, rowmax, gmax, M, N, K);
     err = cudaGetLastError();
   } else {
     const int vx = dla::vec_ok(x, K), vw = dla::vec_ok(w, N) && dla::vec_ok(w2, N);
     if (bm == DecodeCfg::BM)
-      err = dual ? dla::launch_mma<DecodeCfg, true>(fused_decode_gemm<DecodeCfg, true>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, M, N, K, kc, vx, vw)
-                 : dla::launch_mma<DecodeCfg, false>(fused_decode_gemm<DecodeCfg, false>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, M, N, K, kc, vx, vw);
+      err = dual ? dla::launch_mma<DecodeCfg, true>(fused_decode_gemm<DecodeCfg, true>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, gmax, M, N, K, kc, vx, vw)
+                 : dla::launch_mma<DecodeCfg, false>(fused_decode_gemm<DecodeCfg, false>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, gmax, M, N, K, kc, vx, vw);
     else
-      err = dual ? dla::launch_mma<PrefillCfg, true>(fused_decode_gemm<PrefillCfg, true>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, M, N, K, kc, vx, vw)
-                 : dla::launch_mma<PrefillCfg, false>(fused_decode_gemm<PrefillCfg, false>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, M, N, K, kc, vx, vw);
+      err = dual ? dla::launch_mma<PrefillCfg, true>(fused_decode_gemm<PrefillCfg, true>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, gmax, M, N, K, kc, vx, vw)
+                 : dla::launch_mma<PrefillCfg, false>(fused_decode_gemm<PrefillCfg, false>, M, N, splits, s, xp, wp, w2p, acc, acc2, rowmax, gmax, M, N, K, kc, vx, vw);
   }
   if (err != cudaSuccess) return err;
   const int32_t* accd = dppu == 0 ? nullptr : (dppu == 1 ? acc : acc2);
-  fused_decode_epilogue<<<dim3(M, (N + dla::kThreads - 1) / dla::kThreads), dla::kThreads, 0, s>>>(
-      acc, accd, rowmax, static_cast<const int32_t*>(oflips),
+  const size_t elems = (size_t)M * N;
+  fused_decode_epilogue<<<(unsigned)((elems + dla::kThreads - 1) / dla::kThreads), dla::kThreads, 0, s>>>(
+      acc, accd, rowmax, gmax, static_cast<const int32_t*>(oflips),
       static_cast<const int32_t*>(dflips), static_cast<const int32_t*>(imp),
       static_cast<const int32_t*>(q_scale), static_cast<int8_t*>(y),
       static_cast<int32_t*>(t), M, N, per_row);

@@ -10,8 +10,8 @@ first use, and loaded with ``ctypes``.
 The launch plan (block tile, K chunk, number of chunks) is
 ``kernels/plan.py::gemm_plan``'s, for the device's SM count; the launcher
 takes it as arguments, so the CPU tests can hold the chunking it implies.
-One int32 scratch tensor carries the row maxima (zeroed by the launcher)
-and the accumulators.
+One int32 scratch tensor carries the global and the row maxima (zeroed by
+the launcher) and the accumulators.
 
 ``fused_decode`` takes the plain version (``ref.fused_ref``) only for tensors
 that lie on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -119,8 +119,8 @@ def fused_decode(xq, wq, oflips, q_scale, *, wq_clean=None, wflips=None,
     t = torch.empty((M, 1), dtype=torch.int32, device=dev)
     separate = dppu_src in ("w", "wcl")
     plan = gemm_plan(M, K, N, sm_count(dev))
-    # rowmax[M], acc[M, N] (and the DPPU's acc[M, N])
-    scratch = torch.empty(M + (2 if separate else 1) * M * N,
+    # gmax, rowmax[M], acc[M, N] (and the DPPU's acc[M, N])
+    scratch = torch.empty(1 + M + (2 if separate else 1) * M * N,
                           dtype=torch.int32, device=dev)
     w2 = wq_clean if dppu_src == "wcl" else (wq if separate else None)
     launch(_lib(), "fused_decode", dev,

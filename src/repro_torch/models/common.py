@@ -86,19 +86,24 @@ class FTCtx:
     ``t`` is one int for every site or a ``{site: int}`` table, the pallas
     backend's truncation LSBs: deployment state, so a pallas site without
     one raises, as under the reference's jit (where its Engine runs every
-    step); only a direct ``protect_linear`` call calibrates.  (The
-    reference's ``protected_layers``, ``dyn`` and ``ste`` fields come with
-    the DSE and training slices.)
+    step); only a direct ``protect_linear`` call calibrates.
+    ``protected_layers`` is the set of layer names (a site's prefix before
+    ``/``) that whole-layer-TMR policies protect, None for all.  ``dyn``
+    optionally overrides the policy's numeric knobs (``{"ib_th", "nb_th",
+    "q_scale"}``, ints or int tensors), as the DSE's batched oracle does.
+    (The reference's ``ste`` field comes with fault-aware training.)
     """
 
-    def __init__(self, ft, key, masks=None, backend: str = "reference",
-                 t=None):
+    def __init__(self, ft, key, masks=None, protected_layers=None,
+                 backend: str = "reference", t=None, dyn=None):
         from repro_torch.ft import as_policy
         self.ft = as_policy(ft)
         self.key = key
         self.masks = masks or {}
+        self.protected_layers = protected_layers
         self.backend = backend
         self.t = t
+        self.dyn = dyn
 
     def site_key(self, name: str) -> torch.Tensor:
         return prng.fold_in(self.key, zlib.crc32(name.encode()))
@@ -126,6 +131,8 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
         from repro_torch.ft import protect_linear
         w2 = w.reshape(w.shape[0], -1).to(torch.float32)
         imp = ftc.masks.get(name)
+        prot = (ftc.protected_layers is None
+                or name.split("/")[0] in ftc.protected_layers)
         sk = ftc.site_key(name)
         if sk.dim() == 2:
             # per-row streams: x flattens to (B*S, K) row-major, so each
@@ -137,8 +144,14 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
             sk, x.to(torch.float32).reshape(-1, w.shape[0]), w2, ftc.ft,
             important=None if imp is None else torch.as_tensor(
                 imp, device=x.device),
-            backend=ftc.backend, t=ftc.site_t(name))
+            layer_protected=prot, backend=ftc.backend, t=ftc.site_t(name),
+            dyn=ftc.dyn)
         y = y.reshape(*x.shape[:-1], *w.shape[1:]).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def tag(probe, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Neuron-importance tap site (Algorithm 1)."""
+    return x if probe is None else probe.tag(name, x)

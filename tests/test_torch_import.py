@@ -17,7 +17,13 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.kernels.fused_decode.kernel, "
             "repro_torch.kernels.qmatmul.ops, "
             "repro_torch.kernels.fault_inject.ops, "
-            "repro_torch.kernels.protected_mm.ops; "
+            "repro_torch.kernels.protected_mm.ops, "
+            "repro_torch.core.area, repro_torch.core.perfmodel, "
+            "repro_torch.core.bayesopt, repro_torch.core.bit_importance, "
+            "repro_torch.core.strategies, repro_torch.core.pipeline, "
+            "repro_torch.core.flexhyca, repro_torch.core.importance, "
+            "repro_torch.core.evaluate, repro_torch.data.pipeline, "
+            "repro_torch.models.cnn; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -139,3 +139,58 @@ def test_categorical(seed):
                            torch.from_numpy(logits))
     np.testing.assert_array_equal(got.numpy(), np.asarray(
         jax.vmap(jax.random.categorical)(ks, logits)))
+
+
+@pytest.mark.parametrize("lo,hi", ((0, 8), (0, 1), (-5, 1000), (3, 3),
+                                   (5, 2), (-7, 70000),
+                                   (0, 2**31 - 1), (-2**31, 2**31 - 1)))
+def test_randint(lo, hi):
+    """Bitwise (integer math): spans of one, a power of two, odd ones, an
+    empty range (maxval <= minval gives minval), and spans past 2**16 and
+    2**31, where jax's uint32 products wrap; one key and a key batch."""
+    for seed in (0, 2**32 - 1):
+        k = jax.random.PRNGKey(seed)
+        _assert_bitwise(np.asarray(jax.random.randint(k, (3, 333), lo, hi)),
+                        prng.randint(prng.PRNGKey(seed), (3, 333), lo, hi)
+                        .numpy().astype(np.int32))
+    ks = jax.random.split(jax.random.PRNGKey(4), 3)
+    want = jax.vmap(lambda kk: jax.random.randint(kk, (50,), lo, hi))(ks)
+    _assert_bitwise(np.asarray(want), prng.randint(
+        prng.as_key(np.asarray(ks)), (50,), lo, hi).numpy().astype(np.int32))
+
+
+# jax.random.normal is sqrt(2) * erf_inv(u): prng.erfinv is XLA's polynomial
+# with its Horner steps fused, but log1p is each framework's own, so a draw
+# may part by a few float32 ulps (3 at most over 2e6 draws, 1% differ)
+NORMAL_ULPS = 3
+
+
+def _ulps(a, b):
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(np.where(a < 0, -(a & 0x7FFFFFFF), a)
+                  - np.where(b < 0, -(b & 0x7FFFFFFF), b))
+
+
+@pytest.mark.parametrize("seed", (0, 99, 2**31 + 5))
+def test_normal_within_stated_ulps(seed):
+    k = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.normal(k, (8, 16, 16, 1)))
+    got = prng.normal(prng.PRNGKey(seed), (8, 16, 16, 1)).numpy()
+    assert _ulps(want, got).max() <= NORMAL_ULPS
+    assert (got != want).any()       # the draws do differ: the bound is used
+    ks = jax.random.split(k, 3)
+    want = jax.vmap(lambda kk: jax.random.normal(kk, (700,)))(ks)
+    got = prng.normal(prng.as_key(np.asarray(ks)), (700,)).numpy()
+    assert _ulps(np.asarray(want), got).max() <= NORMAL_ULPS
+
+
+def test_erfinv_ends_and_middle():
+    """erf_inv's edges as XLA's: +-inf at +-1, 0 at 0, and within the
+    stated ulps elsewhere (u from the normal sampler's range)."""
+    u = np.array([-1.0, 1.0, 0.0, np.nextafter(np.float32(-1), np.float32(0)),
+                  0.5, -0.9999, 0.99999994, 1e-30, -3e-8], np.float32)
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(u)))
+    got = prng.erfinv(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got[:3], want[:3])
+    assert _ulps(want[3:], got[3:]).max() <= NORMAL_ULPS
