@@ -47,13 +47,15 @@ its last line:
      replay's wall ms and CUDA-event ms, peak memory, the
      graph's memory, and a profiled replay (busy share; the kernel once
      per projection);
-  7. pallas engine: the same model, all 24 layers, through
+  7. pallas engine: the same widths at 4 of the 24 layers (PALLAS_LAYERS;
+     its eager loop is host-bound), through
      Engine(ft_backend="pallas", ft_t=T, loop="python") with T calibrated
      on layer 0's first projection: protected_mm launched once per
      projection of every step, its device time, and a second generation in
      which every launch is held bitwise to protected_mm_ref, with the same
      tokens;
-  7b. scan on the pallas backend, as 6b, against phase 7's tokens;
+  7b. scan on the pallas backend, as 6b (at phase 7's depth), against
+     phase 7's tokens;
   8. scheduler: the same model, all 24 layers, through the continuous-
      batching Scheduler (4 slots, buckets 32/64, paged KV cache of 16-token
      blocks, 4 decode steps per round trip; loop="python", pinned as in 6)
@@ -90,14 +92,27 @@ its last line:
      accuracies, Figs. 5-7, the DSE of examples/crosslayer_dse.py with its
      launches counted, and a card-against-CPU line (phase_dse's
      docstring);
-  9b. split: the same faulty reduced Scheduler, eager, on the card and on
+  9b. train: training on the card (phase_train's docstring): full-width
+     h2o-danube-1.8b (bf16 parameters, float32 AdamW moments) at B = 4,
+     S = 64 through the Trainer, 2 clean steps, then 4 fault-aware steps
+     (crt3 at BER 1e-4, fused backend: fused_decode at M = 256 in the
+     forward and again in the backward's recompute), async checkpoints,
+     a resume from step 4 bitwise equal to the uninterrupted run, one step
+     with every fused_decode launch held bitwise to fused_ref, a profiled
+     step, the STE at one full-width site against the clean matmul's
+     gradients; then the CNN trained through cl faults
+     (trained_cnn_fat("vgg", 250, fat_ber=2e-3): fused_decode at the
+     batch-64 conv shapes, which the kernel phase also checks and times)
+     and FatCnnOracle over fat_ber 0 and 2e-3;
+  9c. split: the same faulty reduced Scheduler, eager, on the card and on
      the CPU: the first protected projection whose int8 input differs
      between them, with the last-place differences of its input and of
      the rms_norm input before it, and x / scale on each device;
  10. a ``kernels`` JSON line (per kernel: its launches and device time on
      its path, and the kernel phase's sums of kernel, bound, plain and
      ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
-     fused_decode's also the same for its scheduler run and its DSE run),
+     fused_decode's also the same for its scheduler run, its DSE run and
+     its two training runs),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -145,6 +160,11 @@ EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
                     for n in (130, 648))
 # (M, K, N) at which xq and wq also run 1 byte off 16-byte alignment
 MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
+# the pallas path (phases 7 and 7b) runs full width at this many of the
+# 24 layers: its eager loop is host-bound, and at full depth the script
+# took 1096.9 s of its 1200-s limit on an H100 host whose eager phases
+# ran 33% slower than on others
+PALLAS_LAYERS = 4
 # the kernels on the split-K tensor-core GEMM core
 CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
 # the dse phase: the reference's benchmark settings (CNNConfig(), trained
@@ -152,6 +172,18 @@ CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
 # examples/crosslayer_dse.py at --iters 16 --batch 8)
 DSE = dict(train_steps=250, ber=1e-3, iter_max_step=16, batch_size=8,
            check_ber=2e-3)
+# the train phase: full-width danube at B = 4, S = 64 (the serving
+# prompt's size), 2 clean steps, then FAT steps under crt3 at BER 1e-4
+# without weight faults (as the serving phases; at full width their eager
+# draws take minutes per step), the ramp over the clean steps; the Trainer
+# with async checkpoints every 2 steps at 2 of the 24 layers (the script
+# writes at most 45 GiB to disk in a run; a full-depth checkpoint is
+# 17.5 GB);
+# the CNN trained through cl faults at 2e-3
+TRAIN = dict(seq=64, batch=4, clean_steps=2, fat_steps=2, policy="crt3",
+             ber=1e-4, fat_ramp=2, fat_seed=17, trainer_layers=2,
+             trainer_fat_steps=4, ckpt_every=2, cnn_steps=250,
+             cnn_fat_ber=2e-3, cnn_batch=64, ste_rtol=1e-6)
 # VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
 # benchmarks/workloads.py (which imports the JAX package): (name, out_hw,
 # k, cin, cout), then the three fc layers; the first 40% are "sensitive"
@@ -488,7 +520,9 @@ def phase_kernels(torch):
         emit({"phase": "kernel", "kernel": "fused_decode", **row})
         del ops
     conv_rows = []
-    for site, (M, K, N) in conv_shapes():
+    for path, site, (M, K, N) in (
+            [("dse", *c) for c in conv_shapes()]
+            + [("train", *c) for c in conv_shapes(TRAIN["cnn_batch"])]):
         ops = _operands(torch, g, dev, M, K, N)
         max_err = max(max_err, _check_modes(torch, g, ops, (3,)),
                       _check_modes(torch, g, _edges(ops), (0, 12, 20)))
@@ -508,7 +542,7 @@ def phase_kernels(torch):
                 imp=ops["imp"])
             args = (ops["xq"], ops["wq"], ops["oflips"], qs)
             b_ms, b_by = bound(M, K, N, (False, dppu, False))
-            row = dict(shape=[M, K, N], path="dse", site=site, mode=label,
+            row = dict(shape=[M, K, N], path=path, site=site, mode=label,
                        plan=list(kernel.gemm_plan(M, K, N, sm_count(dev))),
                        kernel_ms=cuda_ms(torch, functools.partial(
                            kernel.fused_decode, *args, dppu_src=dppu, **kw),
@@ -807,14 +841,18 @@ class LaunchTimer:
         return sum(t == tag for t, _, _ in self.events)
 
 
-def full_model(torch):
-    """Full-width h2o-danube-1.8b, random bf16 weights from a seed, on the
-    card; a B x PROMPT prompt; crt3 at BER 1e-4 without weight faults."""
+def full_model(torch, n_layers=None):
+    """Full-width h2o-danube-1.8b (``n_layers`` of its 24 layers where
+    given), random bf16 weights from a seed, on the card; a B x PROMPT
+    prompt; crt3 at BER 1e-4 without weight faults."""
     from repro_torch import ft
     from repro_torch.configs import get_config, get_run_config
     from repro_torch.models import build
+    from repro_torch.tree import leaves
     dev = torch.device("cuda")
     cfg = get_config("h2o-danube-1.8b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build(cfg, get_run_config("h2o-danube-1.8b"))
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -826,7 +864,7 @@ def full_model(torch):
     return dict(cfg=cfg, model=model, params=params, batch=batch,
                 policy=ft.get_policy("crt3", ber=1e-4, weight_faults=False),
                 init_s=init_s,
-                n_params=sum(t.numel() for t in _leaves(params)))
+                n_params=sum(t.numel() for t in leaves(params)))
 
 
 class PrefillTimer:
@@ -1628,17 +1666,9 @@ def phase_profile(torch, m, toks, backend, t, kernel):
     return out
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
-
-
 def _to(tree, dev):
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def phase_faults(torch):
@@ -2008,6 +2038,301 @@ def phase_dse(torch):
                 evaluations=evals)
 
 
+def _state_equal(torch, a, b):
+    """Names of the leaves of two train states that differ (bitwise)."""
+    from repro_torch.tree import items
+    return [n for (n, x), (_, y) in zip(items(a), items(b))
+            if not torch.equal(x.cpu(), y.cpu())]
+
+
+def phase_train(torch):
+    """Training on the card: the LM through its train step and the Trainer,
+    and the CNN's fault-aware training (FAT) with its DSE oracle.
+
+      lm: full-width h2o-danube-1.8b, all 24 layers (random bf16 weights
+        from a seed, float32 AdamW moments, every layer recomputed in the
+        backward pass), B = 4, S = 64, through make_train_step: 2 clean
+        steps and 2 FAT steps on the fused backend (crt3 at BER 1e-4 from
+        the step counter 2 on, fat_ramp 2; fused_decode launches counted
+        and timed with CUDA events), one more FAT step with every
+        fused_decode launch held bitwise to fused_ref, and a profile of
+        one FAT step; step seconds, tokens/s, peak memory, losses (finite;
+        a drop is not asserted);
+      ste: one protected site at full width (layer 0's mlp/wi weight, a
+        (256, 2560) input): the STE's forward is protect_linear's bitwise,
+        and its gradients are the clean float32 torch.matmul gradients
+        within TRAIN["ste_rtol"] of the largest;
+      trainer: the same widths cut to TRAIN["trainer_layers"] layers, as
+        the script writes at most 45 GiB to disk in a run and one
+        full-depth checkpoint is 17.5 GB: a Trainer runs 2 clean steps (its
+        checkpoint at step 2), a FAT Trainer restores it and runs steps 3-6,
+        checkpointing asynchronously at 4 and 6 into build/; a fresh FAT
+        Trainer restores step 4 and runs 5-6: params, m, v and step bitwise
+        the uninterrupted run's, with the same losses;
+      cnn: trained_cnn_fat("vgg", 250, fat_ber=2e-3) on the card (every
+        site of every step one fused_decode launch, at batch 64), then
+        FatCnnOracle over fat_ber 0 and 2e-3: accuracy under cl at 2e-3 for
+        each, and its batch equal to the singles.
+    Returns the launches and device ms of the LM's FAT steps and of the
+    CNN's FAT training, with their launches per shape."""
+    import dataclasses as dc
+    import math
+    import shutil
+
+    from repro_torch import ft
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prng
+    from repro_torch.core.evaluate import (FatCnnOracle, trained_cnn,
+                                           trained_cnn_fat)
+    from repro_torch.data.pipeline import LMIterator
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (Trainer, TrainerConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    cfg = get_config("h2o-danube-1.8b")
+    run = get_run_config("h2o-danube-1.8b")
+    shape = ShapeConfig("chip_train", "train", TRAIN["seq"], TRAIN["batch"])
+    tokens = TRAIN["seq"] * TRAIN["batch"]
+    opt = AdamWConfig(dtype=run.adam_dtype)
+    policy = ft.get_policy(TRAIN["policy"], ber=TRAIN["ber"],
+                           weight_faults=False)
+    fat_kw = dict(policy=policy, ft_ber=TRAIN["ber"],
+                  ft_key=prng.PRNGKey(TRAIN["fat_seed"], dev),
+                  fat_ramp=TRAIN["fat_ramp"], ft_backend="fused")
+
+    # ---- full depth: the train step itself
+    model = build(cfg, run)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0),
+                       opt, dev)
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    data = LMIterator(cfg, shape, device=dev)
+    rows = []
+
+    def timed(step_fn, n):
+        nonlocal state
+        for _ in range(n):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step_fn(state, batch)
+            loss = float(met["loss"])
+            rows.append(dict(step=int(state["step"]), loss=loss,
+                             sec=time.perf_counter() - t0,
+                             fat_ber=float(met.get("fat_ber", 0.0))))
+    timed(make_train_step(model, opt), TRAIN["clean_steps"])
+    fat_step = make_train_step(model, opt, **fat_kw)
+    timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+    real_lib = kernel._lib
+    kernel._lib = lambda: timer
+    kernel.fused_decode.launches = 0        # the FAT steps start here
+    try:
+        timed(fat_step, TRAIN["fat_steps"])
+        torch.cuda.synchronize()
+    finally:
+        kernel._lib = real_lib
+    launches = kernel.fused_decode.launches  # ... and end here
+    fat_ms = timer.ms()
+    want_launches = 2 * len(LAYER_KN) * cfg.n_layers  # forward, recompute
+    if launches != want_launches * TRAIN["fat_steps"]:
+        raise AssertionError(f"{TRAIN['fat_steps']} FAT steps launched "
+                             f"fused_decode {launches} times, expected "
+                             f"{want_launches * TRAIN['fat_steps']}")
+
+    # one more FAT step, every launch held bitwise to the plain version
+    batch = next(data)
+    seen = collections.Counter()
+    real, checked = _checked_fused_decode(torch, seen)
+    fops.fused_decode = checked
+    try:
+        _, checked_metrics = fat_step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fops.fused_decode = real
+    n_checked = sum(seen.values())
+    if n_checked != want_launches:
+        raise AssertionError(f"{n_checked} fused_decode launches checked in "
+                             f"a FAT step, expected {want_launches}")
+    prof = _profile(torch, lambda: fat_step(state, batch), "fused_decode")
+    fat_sec = [r["sec"] for r in rows[TRAIN["clean_steps"]:]]
+    clean_sec = [r["sec"] for r in rows[:TRAIN["clean_steps"]]]
+    prof["wall_ms"] = 1e3 * min(fat_sec[1:] or fat_sec)
+    prof["device_busy_share"] = prof["device_kernel_ms"] / prof["wall_ms"]
+    prof["kernel_share"] = prof["kernel_ms"] / prof["device_kernel_ms"]
+    losses = [r["loss"] for r in rows] + [float(checked_metrics["loss"])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # one protected site at full width: the STE against the clean matmul
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((tokens, cfg.d_model), generator=g, device=dev)
+    w = state["params"]["layers"]["l0"]["ffn"]["wi"].to(torch.float32)
+    key = prng.PRNGKey(3, dev)
+    xs, ws = (t.clone().requires_grad_(True) for t in (x, w))
+    y = ft.protect_linear_ste(key, xs, ws, policy, backend="fused")
+    cot = torch.randn(y.shape, generator=g, device=dev)
+    gx, gw = torch.autograd.grad(y, (xs, ws), cot)
+    y_plain = ft.protect_linear(key, x, w, policy, backend="fused")
+    gx_ref, gw_ref = cot @ w.T, x.T @ cot
+    ste_err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in ((gx, gx_ref), (gw, gw_ref)))
+    ste_equal = torch.equal(y.detach(), y_plain)
+    if not ste_equal or ste_err > TRAIN["ste_rtol"]:
+        raise AssertionError(f"the STE at full width: forward equal "
+                             f"{ste_equal}, gradients {ste_err} of the "
+                             "largest apart")
+    del state, data, x, w, xs, ws, y, cot, gx, gw, y_plain, gx_ref, gw_ref
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "step": "lm", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "param_dtype": run.param_dtype, "adam_dtype": opt.dtype,
+          "remat": run.remat, "n_params": n_params,
+          "state_gb": state_bytes / 1e9,
+          "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+          "policy": TRAIN["policy"], "ber": TRAIN["ber"],
+          "weight_faults": False,
+          "weight_faults_why": "at full width their eager draws take "
+                               "minutes per step",
+          "fat_ramp": TRAIN["fat_ramp"], "backend": "fused",
+          "clean_step_s": clean_sec, "fat_step_s": fat_sec,
+          "clean_tokens_per_s": tokens / min(clean_sec[1:] or clean_sec),
+          "fat_tokens_per_s": tokens / min(fat_sec[1:] or fat_sec),
+          "fat_bers": [r["fat_ber"] for r in rows], "losses": losses,
+          "peak_memory_gb": peak / 1e9,
+          "fused_decode_launches": launches,
+          "fused_decode_launches_per_step": launches / TRAIN["fat_steps"],
+          "fused_decode_ms": fat_ms,
+          "fused_decode_ms_per_step": fat_ms / TRAIN["fat_steps"],
+          "launches_checked": n_checked,
+          "checked_shapes": sorted([list(k[:3]), k[3], v]
+                                   for k, v in seen.items()),
+          "fat_step_profile": prof,
+          "ste_site": "layers/l0/ffn/wi", "ste_forward_bitwise": True,
+          "ste_grad_max_err_of_largest": ste_err})
+
+    # ---- cut depth: the Trainer, its checkpoints and a resume
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    small = build(dc.replace(cfg, n_layers=TRAIN["trainer_layers"]), run)
+    fat = dict(fat_policy=policy, fat_ber=TRAIN["ber"],
+               fat_ramp=TRAIN["fat_ramp"], fat_seed=TRAIN["fat_seed"])
+    total = TRAIN["clean_steps"] + TRAIN["trainer_fat_steps"]
+
+    def trainer(sub, steps, every, **kw):
+        return Trainer(small, shape, opt, TrainerConfig(
+            total_steps=steps, ckpt_every=every, ckpt_dir=str(ckdir / sub),
+            keep=2, log_every=10 ** 9, **kw), device=dev)
+    saved, real_save = [], ckpt.save
+
+    def counted_save(ckpt_dir, state, step, **kw):
+        saved.append(step)
+        return real_save(ckpt_dir, state, step, **kw)
+    ckpt.save = counted_save                # the Trainer's writes, counted
+    t0 = time.perf_counter()
+    try:
+        trainer("run", TRAIN["clean_steps"], TRAIN["ckpt_every"]).run()
+        fat_run = trainer("run", total, TRAIN["ckpt_every"], **fat)
+        want, step = fat_run.run()
+        run_s = time.perf_counter() - t0
+        steps = ckpt.available_steps(str(ckdir / "run"))
+        if step != total or steps != [4, 6]:
+            raise AssertionError(f"the FAT run ended at {step} with "
+                                 f"checkpoints {steps}")
+        t0 = time.perf_counter()
+        resumed = trainer("resume", total, 10 ** 9, **fat)
+        s4, step4, dstate = ckpt.restore(str(ckdir / "run"),
+                                         resumed.state_like(), step=4,
+                                         device=dev)
+        resumed.data.restore(dstate)
+        got, _ = resumed.run(s4, step4)
+        resume_s = time.perf_counter() - t0
+        differ = _state_equal(torch, want, got)
+        cont = {r["step"]: r["loss"] for r in fat_run.metrics_log}
+        if differ or any(r["loss"] != cont[r["step"]]
+                         for r in resumed.metrics_log):
+            raise AssertionError(
+                f"the resumed run differs from the uninterrupted one: "
+                f"{differ[:5]}, losses "
+                f"{[r['loss'] for r in resumed.metrics_log]}")
+    finally:
+        ckpt.save = real_save
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(got)) / 1e9
+    emit({"phase": "train", "step": "trainer", "layers":
+          TRAIN["trainer_layers"], "d_model": cfg.d_model,
+          "layers_why": "one full-depth checkpoint is 17.5 GB, and the "
+                        "script writes at most 45 GiB to disk in a run",
+          "state_gb": state_gb, "checkpoints_written": len(saved),
+          "checkpoint_steps": saved,
+          "checkpoints": steps, "run_s": run_s, "resume_s": resume_s,
+          "fat_bers": [r["fat_ber"] for r in fat_run.metrics_log],
+          "losses": [r["loss"] for r in fat_run.metrics_log],
+          "step_s": [r["sec"] for r in fat_run.metrics_log],
+          "resume_from_step_4_bitwise": True})
+    del want, got, s4
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the CNN's fault-aware training and the fat_ber DSE axis
+    cl = ft.get_policy("cl", ber=TRAIN["cnn_fat_ber"])
+    kernel.fused_decode.launches = 0        # the CNN's FAT run starts here
+    t0 = time.perf_counter()
+    fat_net = trained_cnn_fat("vgg", TRAIN["cnn_steps"],
+                              fat_ber=TRAIN["cnn_fat_ber"])
+    torch.cuda.synchronize()
+    cnn_fat_s = time.perf_counter() - t0
+    cnn_launches = kernel.fused_decode.launches  # ... and ends here
+    t0 = time.perf_counter()
+    base_net = trained_cnn("vgg", TRAIN["cnn_steps"])
+    torch.cuda.synchronize()
+    cnn_base_s = time.perf_counter() - t0
+    sites = conv_shapes(TRAIN["cnn_batch"])
+    if cnn_launches != TRAIN["cnn_steps"] * len(sites):
+        raise AssertionError(f"the CNN's FAT training launched fused_decode "
+                             f"{cnn_launches} times, expected "
+                             f"{TRAIN['cnn_steps'] * len(sites)}")
+    oracle = FatCnnOracle("vgg", TRAIN["cnn_steps"])
+    fbs = (0.0, TRAIN["cnn_fat_ber"])
+    singles = [oracle(cl, fat_ber=fb) for fb in fbs]
+    batched = oracle.batch([cl, cl, None], [fbs[1], fbs[0], fbs[1]])
+    if batched != [singles[1], singles[0], oracle.oracle(fbs[1])
+                   .accuracy(None)]:
+        raise AssertionError(f"FatCnnOracle.batch {batched} differs from "
+                             f"its singles {singles}")
+    if oracle.oracle(fbs[0]) is not base_net or oracle.oracle(
+            fbs[1]) is not fat_net:
+        raise AssertionError("FatCnnOracle did not reuse the trained nets")
+    emit({"phase": "train", "step": "cnn", "arch": "vgg",
+          "steps": TRAIN["cnn_steps"], "batch": TRAIN["cnn_batch"],
+          "fat_policy": "cl", "fat_ber": TRAIN["cnn_fat_ber"],
+          "fat_train_s": cnn_fat_s, "baseline_train_s": cnn_base_s,
+          "fat_train_accuracy": fat_net.clean_acc,
+          "baseline_train_accuracy": base_net.clean_acc,
+          "accuracy_cl_2e-3": {"baseline": singles[0], "fat": singles[1]},
+          "batch_equals_singles": True,
+          "fused_decode_launches": cnn_launches,
+          "shapes": [list(s) for _, s in sites]})
+    per_shape = collections.Counter()
+    for _, s in sites:
+        per_shape[s] += TRAIN["cnn_steps"]
+    lm_shapes = collections.Counter()
+    for kn in LAYER_KN:
+        lm_shapes[(tokens,) + kn] += 2 * cfg.n_layers * TRAIN["fat_steps"]
+    del fat_net, base_net, oracle
+    trained_cnn.cache_clear()
+    trained_cnn_fat.cache_clear()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=fat_ms, per_shape=lm_shapes,
+                cnn_launches=cnn_launches, cnn_per_shape=per_shape)
+
+
 def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
                        temperature=0.0, loop="scan"):
     """The reduced model through the Scheduler: 5 requests on 2 slots, two
@@ -2044,9 +2369,10 @@ def _totals(rows, weight):
 
 
 def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
-                 sched, dse):
+                 sched, dse, train):
     """One entry for each of the port's four kernels; fused_decode's also
-    holds its scheduler path's run and its DSE path's."""
+    holds its scheduler path's run, its DSE path's and its training
+    paths'."""
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
@@ -2079,7 +2405,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                        "per-row t): ms from CUDA events around each launch; "
                        "plain, bound, library and kernel-phase sums from "
                        "the kernel phase's scheduler rows x launches"))
-    path_rows = [r for r in conv_rows if r["mode"] == "global t, no DPPU"]
+    path_rows = [r for r in conv_rows if r["mode"] == "global t, no DPPU"
+                 and r["path"] == "dse"]
     tot = _totals(path_rows, lambda r: dse["per_shape"][tuple(r["shape"])])
     out[0].update(
         dse_launches=dse["launches"], dse_ms=dse["ms"],
@@ -2091,15 +2418,44 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                  "events around each launch; plain, bound, library and "
                  "kernel-phase sums from the kernel phase's conv rows in "
                  "that mode x launches; library_ms pads K = 9 to 16"))
+    lm_rows = [r for r in rows if tuple(r["shape"]) in train["per_shape"]]
+    tot = _totals(lm_rows, lambda r: train["per_shape"][tuple(r["shape"])])
+    out[0].update(
+        train_launches=train["launches"], train_ms=train["ms"],
+        **{f"train_{k}": v for k, v in tot.items()},
+        train_per=(f"the train phase's FAT run ({TRAIN['fat_steps']} steps "
+                   f"of full-width danube at B={TRAIN['batch']}, "
+                   f"S={TRAIN['seq']}, {TRAIN['policy']} at BER "
+                   f"{TRAIN['ber']}: 7 x 24 projections in the forward and "
+                   "again in the backward's recompute, global t): ms from "
+                   "CUDA events around each launch; plain, bound, library "
+                   "and kernel-phase sums from the kernel phase's M = 256 "
+                   "prefill rows x launches"))
+    cnn_rows = [r for r in conv_rows if r["mode"] == "global t, no DPPU"
+                and r["path"] == "train"]
+    tot = _totals(cnn_rows,
+                  lambda r: train["cnn_per_shape"][tuple(r["shape"])])
+    out[0].update(
+        train_cnn_launches=train["cnn_launches"],
+        **{f"train_cnn_{k}": v for k, v in tot.items()},
+        train_cnn_per=(f"the train phase's FAT CNN training "
+                       f"({TRAIN['cnn_steps']} steps at batch "
+                       f"{TRAIN['cnn_batch']}, cl at "
+                       f"{TRAIN['cnn_fat_ber']}: 5 conv/head GEMMs per "
+                       "step, global t, no DPPU): plain, bound, library and "
+                       "kernel-phase sums from the kernel phase's batch-64 "
+                       "conv rows x launches; library_ms pads K = 9 to 16"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
         replaces=rep.format("protected_mm", 84), launches=launches,
         max_abs_err=dla_err["protected_mm"], ms=ms,
         **_totals(dla["protected_mm"],
-                  lambda r: r["launches_per_generation"]),
+                  lambda r: r["launches_per_generation"] * PALLAS_LAYERS
+                  // 24),
         library="torch._int_mm, the GEMM part",
-        per=gen + ", pallas backend", **common))
+        per=gen + f", pallas backend, {PALLAS_LAYERS} of the 24 layers",
+        **common))
     for kernel, line in (("qmatmul", 55), ("fault_inject", 50)):
         launches, ms = entry[kernel]
         decode = [r for r in dla[kernel] if r["shape"][0] == B]
@@ -2149,20 +2505,23 @@ def main() -> int:
     m = run(full_model)
     fused = run(phase_engine, m)
     run(phase_scan, m, "fused", fused)
-    pallas = run(phase_pallas_engine, m)
-    run(phase_scan, m, "pallas", pallas)
+    mp = full_model(torch, PALLAS_LAYERS)
+    pallas = run(phase_pallas_engine, mp)
+    run(phase_scan, mp, "pallas", pallas)
+    del mp
     sched = run(phase_scheduler, m)
     run(phase_graph_scheduler, m, sched)
     del m
     torch.cuda.empty_cache()
     run(phase_faults)
     dse = run(phase_dse)
+    train = run(phase_train)
     run(phase_split)
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(name, smi, (rows, sched_rows, conv_rows, max_err,
                                   fused["launches"], fused["ms"]), dla,
                       dla_err, (pallas["launches"], pallas["ms"]), entry,
-                      entry_bound, sched, dse))
+                      entry_bound, sched, dse, train))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,6 +12,11 @@ reads both of the reference's layouts:
 The port keeps one dict per layer either way; which site names key the
 fault draws follows ``cfg.unroll`` (``repro_torch.models.transformer``).
 
+``train_state_from_jax(state, cfg)`` takes the reference's train state
+(``{"params", "m", "v", "step"}``, as ``repro.train.init_state`` and its
+train step make it) and returns the port's: the moments in the parameters'
+layout, the step a 0-d int32 tensor.
+
 ``cnn_params_from_jax(tree)`` takes the reference's CNN tree
 (``repro.models.cnn.init_cnn`` / ``train_cnn``: ``{"s0_c0": {"w", "b"},
 ..., "head": {"w", "b"}}``) as it is, leaf by leaf.
@@ -55,6 +60,15 @@ def params_from_jax(tree, cfg, device=None) -> dict:
                                                          dev))
                 i += 1
     out["layers"] = layers
+    return out
+
+
+def train_state_from_jax(state, cfg, device=None) -> dict:
+    dev = _device.resolve(device)
+    out = {k: params_from_jax(state[k], cfg, dev) for k in ("params", "m",
+                                                            "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
     return out
 
 

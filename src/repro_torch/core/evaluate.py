@@ -1,6 +1,7 @@
 """Accuracy-under-fault oracles: the models connected to the FT stack.
 
-Counterpart of ``repro.core.evaluate`` (``CnnOracle``, ``trained_cnn``).
+Counterpart of ``repro.core.evaluate`` (``CnnOracle``, ``trained_cnn``,
+``trained_cnn_fat``, ``FatCnnOracle``).
 These drive the paper's experiments: layer sensitivity (Fig. 5/6),
 strategy comparison (Fig. 7) and the Bayesian DSE's accuracy oracle.
 
@@ -208,16 +209,73 @@ class CnnOracle:
         return curve
 
 
-@lru_cache(maxsize=4)
+@lru_cache(maxsize=8)
+def _trained(arch: str, steps: int, fat_ber: float, fat_policy, fat_ramp,
+             device) -> CnnOracle:
+    from repro_torch.models.cnn import train_cnn
+    cfg = CNNConfig(arch=arch)
+    fat = {} if fat_ber == 0.0 else dict(fat=fat_policy, fat_ber=fat_ber,
+                                         fat_ramp=fat_ramp)
+    params, acc = train_cnn(prng.PRNGKey(0, device), cfg, steps=steps, **fat)
+    o = CnnOracle(params, cfg, device=device)
+    o.clean_acc = acc
+    return o
+
+
 def trained_cnn(arch: str = "vgg", steps: int = 250, device=None
                 ) -> CnnOracle:
     """Train (or fetch cached) the reduced paper benchmark CNN on
     ``device`` (default the GPU): key ``PRNGKey(0)`` for the data stream,
-    as the reference's (the initial weights are the port's own draws)."""
-    from repro_torch.models.cnn import train_cnn
-    dev = _device.resolve(device)
-    cfg = CNNConfig(arch=arch)
-    params, acc = train_cnn(prng.PRNGKey(0, dev), cfg, steps=steps)
-    o = CnnOracle(params, cfg, device=dev)
-    o.clean_acc = acc
-    return o
+    as the reference's (the initial weights are the port's own draws).
+    One cache serves this and ``trained_cnn_fat``, keyed on the resolved
+    arguments, however they are passed."""
+    return _trained(arch, steps, 0.0, None, None, _device.resolve(device))
+
+
+def trained_cnn_fat(arch: str = "vgg", steps: int = 250,
+                    fat_ber: float = 0.0, fat_policy: str = "cl",
+                    fat_ramp: int | None = None, device=None) -> CnnOracle:
+    """Fault-aware-trained benchmark CNN on ``device`` (``fat_ber=0`` is
+    ``trained_cnn(arch, steps, device)``).  The same initial weights, data
+    stream and step budget as :func:`trained_cnn`, so a (baseline, FAT)
+    pair differs only in the fault pressure seen in training: the
+    controlled comparison behind the DSE's ``fat_ber`` axis.  ``fat_ramp``
+    (default ``steps // 2``) sets the linear BER warm-up."""
+    if float(fat_ber) == 0.0:
+        return trained_cnn(arch, steps, device)
+    return _trained(arch, steps, float(fat_ber), fat_policy, fat_ramp,
+                    _device.resolve(device))
+
+
+trained_cnn.cache_clear = trained_cnn_fat.cache_clear = _trained.cache_clear
+
+
+class FatCnnOracle:
+    """Accuracy oracle over (policy, fat_ber): the DSE's cross-layer and
+    training-time search surface.  ``fat_ber`` selects which
+    fault-aware-trained network evaluates a candidate (one per value,
+    cached by ``trained_cnn_fat``); ``batch`` groups candidates by it."""
+
+    def __init__(self, arch: str = "vgg", steps: int = 250,
+                 fat_policy: str = "cl", device=None):
+        self.arch, self.steps, self.fat_policy = arch, steps, fat_policy
+        self.device = device
+
+    def oracle(self, fat_ber: float = 0.0) -> CnnOracle:
+        return trained_cnn_fat(self.arch, self.steps, fat_ber,
+                               self.fat_policy, device=self.device)
+
+    def __call__(self, ft, fat_ber: float = 0.0, **kw) -> float:
+        return self.oracle(fat_ber).accuracy(ft, **kw)
+
+    def batch(self, fts, fat_bers, **kw) -> list[float]:
+        out: list[float | None] = [None] * len(fts)
+        groups: dict[float, list[int]] = {}
+        for i, fb in enumerate(fat_bers):
+            groups.setdefault(float(fb), []).append(i)
+        for fb, idxs in groups.items():
+            accs = self.oracle(fb).accuracy_batch([fts[i] for i in idxs],
+                                                  **kw)
+            for j, i in enumerate(idxs):
+                out[i] = accs[j]
+        return out  # type: ignore[return-value]

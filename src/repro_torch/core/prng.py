@@ -6,8 +6,9 @@ process-wide.  The port draws the same fault bits from the same keys, so it
 carries its own copy of the generator, bit for bit:
 
   * a key is a pair of 32-bit words, here an int64 tensor ``(..., 2)``
-    holding values in ``[0, 2**32)`` (torch's CPU build has no shifts on
-    ``uint32``, so every word lives in int64 and is masked to 32 bits);
+    holding values in ``[0, 2**32)`` (torch's CPU build has no shifts or
+    adds on ``uint32``); the hash itself runs on the words' int32 bit
+    patterns, whose adds wrap modulo 2**32 as uint32 ones do;
   * ``split(key, n)``: ``threefry2x32(key, (0, i))`` for ``i < n``, stacked
     as ``(bits1, bits2)`` (jax ``_threefry_split_foldlike``);
   * ``fold_in(key, d)``: ``threefry2x32(key, (0, uint32(d)))``
@@ -44,24 +45,44 @@ _PARITY = 0x1BD11BDA
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r).bitwise_and_(MASK32)).bitwise_or_(x >> (32 - r))
+    """Rotate int32 bit patterns left by ``r``: the right shift is
+    arithmetic on int32, so the ``r`` bits it brings in are masked."""
+    return (x << r).bitwise_or_((x >> (32 - r)).bitwise_and_((1 << r) - 1))
+
+
+def _as_i32(t: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64 in ``[0, 2**32)``, or int32 bit patterns) as
+    int32 bit patterns."""
+    return t if t.dtype == torch.int32 else as_int32_bits(t)
+
+
+def _as_u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns as uint32 words in int64."""
+    return t.to(torch.int64).bitwise_and_(MASK32)
+
+
+def _threefry32(k1, k2, x1, x2):
+    """threefry2x32 on int32 bit patterns: an int32 add wraps modulo
+    2**32 as the uint32 one does, and the words are half as wide as int64
+    ones.  The rounds update the two words in place (they are this
+    function's own tensors), which saves an allocation per operation."""
+    k1, k2 = _as_i32(k1), _as_i32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1, x2 = (t.contiguous() for t in torch.broadcast_tensors(
+        _as_i32(x1) + ks[0], _as_i32(x2) + ks[1]))
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1.add_(x2)
+            x2 = _rotl(x2, r).bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3])
+        x2.add_(ks[(i + 2) % 3] + (i + 1))
+    return x1, x2
 
 
 def threefry2x32(k1, k2, x1, x2):
-    """The threefry2x32 hash (20 rounds) on int64 words; all four arguments
-    broadcast together.  Returns the two output words.  The rounds update
-    the two words in place (they are this function's own tensors), which
-    saves an allocation per operation."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x1, x2 = (t.contiguous() for t in torch.broadcast_tensors(
-        (x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32))
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x1.add_(x2).bitwise_and_(MASK32)
-            x2 = _rotl(x2, r).bitwise_xor_(x1)
-        x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
-        x2.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
-    return x1, x2
+    """The threefry2x32 hash (20 rounds) on uint32 words held in int64; all
+    four arguments broadcast together.  Returns the two output words."""
+    return tuple(_as_u32(t) for t in _threefry32(k1, k2, x1, x2))
 
 
 def as_key(key, device=None) -> torch.Tensor:
@@ -81,18 +102,19 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def _hash_counters(key: torch.Tensor, n: int):
     """threefry over the counters ``(0, i)``, ``i < n``, for every key of a
-    batch: two ``(..., n)`` words."""
+    batch: two ``(..., n)`` words as int32 bit patterns."""
     if n >= 2 ** 32:
         raise NotImplementedError("more than 2**32 draws from one key")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    lo = torch.arange(n, dtype=torch.int32 if n < 2 ** 31 else torch.int64,
+                      device=key.device)
     k1, k2 = key[..., 0:1], key[..., 1:2]
-    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return _threefry32(k1, k2, torch.zeros_like(lo), lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
     b1, b2 = _hash_counters(key, num)
-    return torch.stack([b1, b2], dim=-1)
+    return torch.stack([_as_u32(b1), _as_u32(b2)], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -112,12 +134,17 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits`` (uint32) as int64 words: ``(..., *shape)``."""
+    return _as_u32(_bits32(key, shape))
+
+
+def _bits32(key: torch.Tensor, shape) -> torch.Tensor:
+    """``bits`` as int32 bit patterns."""
     shape = tuple(shape)
     n = 1
     for s in shape:
         n *= s
     b1, b2 = _hash_counters(key, n)
-    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+    return b1.bitwise_xor_(b2).reshape(*key.shape[:-1], *shape)
 
 
 def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
@@ -134,9 +161,9 @@ def uniform(key: torch.Tensor, shape, minval=0., maxval=1.) -> torch.Tensor:
     bits of each word as a mantissa under exponent 0, minus 1, then
     ``max(minval, floats * (maxval - minval) + minval)`` in float32.  At the
     default range that expression is the identity, so it is skipped."""
-    words = bits(key, shape)
-    f = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    floats = f - 1.0
+    words = _bits32(key, shape)
+    f = (words >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
+    floats = f.view(torch.float32) - 1.0
     if minval == 0. and maxval == 1.:
         return floats
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)

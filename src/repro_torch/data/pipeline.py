@@ -1,17 +1,69 @@
-"""Deterministic synthetic data: the vision set of the paper's CNN
-benchmarks.
+"""Deterministic synthetic data: the LM stream and the vision set of the
+paper's CNN benchmarks.
 
-Counterpart of ``repro.data.pipeline::vision_batch``: class-conditional
-procedural images, a fixed random template per class plus Gaussian noise,
-drawn through the port's ``jax.random`` copy (``repro_torch.core.prng``):
-the labels bitwise, the images within ``prng.normal``'s ulp bound.  (The LM
-stream, ``lm_batch`` and ``LMIterator``, comes with LM training.)
+Counterpart of ``repro.data.pipeline``, drawn through the port's
+``jax.random`` copy (``repro_torch.core.prng``):
+
+  * LM stream: each sequence is a repeated random p-gram (p in [4, 16])
+    with a small substitution noise rate, a pure function of (seed, step,
+    index), so a restart at step N reproduces the stream (a checkpoint
+    stores only ``{"step": N}``).  Tokens are bitwise the reference's
+    (``randint`` and ``bernoulli`` are), as int64, torch's index type (the
+    reference's are int32).
+  * Vision set: class-conditional procedural images, a fixed random
+    template per class plus Gaussian noise: the labels bitwise, the images
+    within ``prng.normal``'s ulp bound.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core import prng
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 1234
+    noise: float = 0.05
+    min_period: int = 4
+    max_period: int = 16
+
+
+def lm_batch(cfg: DataConfig, vocab: int, batch: int, seq: int, step: int,
+             process_index: int = 0, process_count: int = 1, device=None):
+    """(batch / process_count, seq) tokens of global step ``step`` (this
+    process's slice), drawn on ``device`` (default the GPU)."""
+    if batch % process_count:
+        raise ValueError(f"batch {batch} does not split over "
+                         f"{process_count} processes")
+    local = batch // process_count
+    key = prng.fold_in(prng.PRNGKey(cfg.seed, _device.resolve(device)), step)
+    key = prng.fold_in(key, process_index)
+    ks = prng.split(key, 4)
+    period = prng.randint(ks[0], (local, 1), cfg.min_period,
+                          cfg.max_period + 1)
+    base = prng.randint(ks[1], (local, cfg.max_period), 1, vocab)
+    idx = torch.arange(seq, device=key.device)[None, :] % period
+    toks = torch.take_along_dim(base, idx, dim=1)
+    noise_mask = prng.bernoulli(ks[2], cfg.noise, (local, seq))
+    noise_tok = prng.randint(ks[3], (local, seq), 1, vocab)
+    return torch.where(noise_mask, noise_tok, toks)
+
+
+def make_batch(model_cfg, shape, step: int, data_cfg: DataConfig | None = None,
+               process_index: int = 0, process_count: int = 1, device=None):
+    """The batch dict of a (ModelConfig, ShapeConfig) cell: ``{"tokens"}``
+    (the vision and audio frontends' inputs come with their families)."""
+    if model_cfg.frontend or model_cfg.enc_dec:
+        raise NotImplementedError(f"{model_cfg.frontend or 'encoder'} "
+                                  "inputs are not ported yet")
+    d = data_cfg or DataConfig()
+    return {"tokens": lm_batch(d, model_cfg.vocab, shape.global_batch,
+                               shape.seq_len, step, process_index,
+                               process_count, device)}
 
 
 def vision_batch(key: torch.Tensor, n: int, n_classes: int = 8,
@@ -24,3 +76,30 @@ def vision_batch(key: torch.Tensor, n: int, n_classes: int = 8,
     labels = prng.randint(k[0], (n,), 0, n_classes)
     imgs = templates[labels] + noise * prng.normal(k[1], (n, hw, hw, 1))
     return imgs, labels
+
+
+class LMIterator:
+    """Stateful, checkpointable iterator over ``make_batch``: its state is
+    the next step."""
+
+    def __init__(self, model_cfg, shape, data_cfg: DataConfig | None = None,
+                 start_step: int = 0, device=None):
+        self.model_cfg, self.shape = model_cfg, shape
+        self.data_cfg = data_cfg or DataConfig()
+        self.step = start_step
+        self.device = _device.resolve(device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = make_batch(self.model_cfg, self.shape, self.step, self.data_cfg,
+                       device=self.device)
+        self.step += 1
+        return b
+
+    def state(self) -> dict:
+        return {"step": self.step}
+
+    def restore(self, state: dict):
+        self.step = int(state.get("step", 0))

@@ -10,6 +10,7 @@ Counterpart of ``repro.ft``:
     t = ft.calibrate_t(x, w)                     # deployment state
     y = ft.protect_linear(key, x, w, policy, important=m, backend="pallas",
                           t=t)
+    y = ft.protect_linear_ste(key, x, w, policy)   # FAT: clean gradients
 """
 from repro_torch.ft.policy import (AlgorithmLayer, ArchLayer,  # noqa: F401
                                    CircuitLayer, ProtectionPolicy)
@@ -20,4 +21,4 @@ from repro_torch.ft.registry import (get_policy, list_policies,  # noqa: F401
 from repro_torch.ft.compat import as_policy, from_ftconfig  # noqa: F401
 # isort: split
 from repro_torch.ft.api import (BACKENDS, calibrate_t,  # noqa: F401
-                                protect_linear)
+                                protect_linear, protect_linear_ste)

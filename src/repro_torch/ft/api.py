@@ -21,7 +21,10 @@ semantics:
     them only at BER 0; it equals the reference package's pallas backend
     bitwise.
 
-``protect_linear_ste`` is not ported yet.
+``protect_linear_ste`` is the fault-aware-training (FAT) entry point: the
+forward is ``protect_linear``'s output unchanged, the backward the clean
+float32 matmul's (the straight-through estimator, a
+``torch.autograd.Function``).
 """
 from __future__ import annotations
 
@@ -85,6 +88,40 @@ def protect_linear(key, x: torch.Tensor, w: torch.Tensor,
                                layer_protected=layer_protected, t=t)
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{BACKENDS}")
+
+
+class _ProtectSTE(torch.autograd.Function):
+    """Forward: ``protect_linear`` on the operands, its output untouched.
+    Backward: the cotangents of the clean float32 ``x @ w``, cast back to
+    the operands' dtypes (the reference's ``_ste_tie``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, policy, important, kw):
+        ctx.save_for_backward(x, w)
+        return protect_linear(key, x, w, policy, important, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.to(torch.float32).reshape(-1, w.shape[1])
+        x2 = x.to(torch.float32).reshape(-1, w.shape[0])
+        gx = (g2 @ w.to(torch.float32).T).reshape(x.shape).to(x.dtype)
+        gw = (x2.T @ g2).to(w.dtype)
+        return gx, gw, None, None, None, None
+
+
+def protect_linear_ste(key, x: torch.Tensor, w: torch.Tensor,
+                       policy: ProtectionPolicy, important=None,
+                       **kw) -> torch.Tensor:
+    """:func:`protect_linear` with a straight-through gradient rule.
+
+    The forward value is the :func:`protect_linear` output bit for bit (the
+    training loss sees exactly the faulty datapath the deployment runs);
+    the backward returns the cotangents of the clean float ``x @ w``, as if
+    the quantize/flip/truncate chain were the identity.  ``kw`` is
+    forwarded verbatim (``layer_protected`` / ``backend`` / ``t`` /
+    ``dyn``)."""
+    return _ProtectSTE.apply(x, w, key, policy, important, kw)
 
 
 def _protect_reference(key, x, w, policy: ProtectionPolicy, important,

@@ -1,14 +1,15 @@
 """GQA attention: chunked online softmax, local (sliding-window) layers,
 softcaps, rolling KV caches.
 
-Counterpart of ``repro.models.attention``: prefill attention (one block of
-full scores for short sequences, the chunked online softmax otherwise, which
-never holds an (S x S) score tensor and skips kv blocks outside the causal
-window) and the dense decode path.  Both are plain torch ops, as the
-reference's are XLA ops.  Decode runs on either cache layout: the dense one
-(a row of slots per batch row) and the paged one of the continuous-batching
-scheduler (``init_paged_cache``: a shared block pool addressed through a
-per-row block table).
+Counterpart of ``repro.models.attention``: training and prefill attention
+(one block of full scores for short sequences, the chunked online softmax
+otherwise, which never holds an (S x S) score tensor and skips kv blocks
+outside the causal window; the reference's training scan visits them
+masked, which leaves the result as it is) and the dense decode path.  Both
+are plain torch ops, as the reference's are XLA ops.  Decode runs on either
+cache layout: the dense one (a row of slots per batch row) and the paged
+one of the continuous-batching scheduler (``init_paged_cache``: a shared
+block pool addressed through a per-row block table).
 
 The decode step writes the new token into the cache in place (the reference
 donates its cache buffers, so it too reuses them); callers hand the caches
@@ -112,9 +113,9 @@ def chunked_attention(q, k, v, *, window=0, cap=0.0, block=512):
 
 def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
           cache=None, mode="prefill"):
-    """Attention sub-layer; modes "prefill" (builds the cache) and "decode"
-    (one token).  Returns (out, new_cache)."""
-    if mode not in ("prefill", "decode"):
+    """Attention sub-layer; modes "train" (no cache), "prefill" (builds the
+    cache) and "decode" (one token).  Returns (out, new_cache)."""
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     window = cfg.window if kind == "L" else 0
@@ -166,7 +167,7 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
     else:
         o = chunked_attention(q, k, v, window=window,
                               cap=cfg.attn_softcap, block=run.attn_block)
-        new_cache = _build_cache(k, v, window)
+        new_cache = _build_cache(k, v, window) if mode == "prefill" else None
     y = linear(o.reshape(*x.shape[:-1], H * Dh), p["wo"], ftc=ftc,
                name=f"{name}/wo")
     return y, new_cache

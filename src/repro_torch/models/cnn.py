@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch import device as _device
 from repro_torch.core import prng
-from repro_torch.models.common import dense_init, linear, tag
+from repro_torch.models.common import FTCtx, dense_init, linear, tag
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,32 +134,25 @@ def accuracy(logits, labels) -> torch.Tensor:
                              device=hits.device)
 
 
-def _leaves(params):
-    return [t for layer in params.values() for t in layer.values()]
-
-
-def _rebuild(params, leaves):
-    it = iter(leaves)
-    return {name: {k: next(it) for k in layer} for name, layer in
-            params.items()}
-
-
-def sgd_step(params, mom, imgs, labels, cfg: CNNConfig, lr: float):
-    """One step of SGD with momentum 0.9 on the clean float forward:
-    ``mom = 0.9 * mom + grad``, ``params = params - lr * mom``.  Returns
-    (params, mom)."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
-    p = _rebuild(params, leaves)
-    loss = xent_loss(apply_cnn(p, cfg, imgs), labels)
-    grads = torch.autograd.grad(loss, leaves)
+def sgd_step(params, mom, imgs, labels, cfg: CNNConfig, lr: float,
+             ftc=None):
+    """One step of SGD with momentum 0.9: ``mom = 0.9 * mom + grad``,
+    ``params = params - lr * mom``, the gradient of the forward under
+    ``ftc`` (None: the clean float forward; an ``FTCtx(ste=True)``: the
+    faulty datapath with straight-through gradients).  Returns (params,
+    mom)."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    flat = leaves(p)
+    loss = xent_loss(apply_cnn(p, cfg, imgs, ftc=ftc), labels)
+    by_leaf = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
     with torch.no_grad():
-        ms = [0.9 * m + g for m, g in zip(_leaves(mom), grads)]
-        ps = [t.detach() - lr * m for t, m in zip(leaves, ms)]
-    return _rebuild(params, ps), _rebuild(params, ms)
+        mom = tree_map(lambda t, m: 0.9 * m + by_leaf[id(t)], p, mom)
+        return tree_map(lambda t, m: t.detach() - lr * m, p, mom), mom
 
 
 def train_cnn(key, cfg: CNNConfig, steps: int = 300, batch: int = 64,
-              lr: float = 3e-3, data_seed: int = 99, noise: float = 1.6):
+              lr: float = 3e-3, data_seed: int = 99, noise: float = 1.6,
+              fat=None, fat_ber: float = 0.0, fat_ramp: int | None = None):
     """Quick SGD+momentum training on the procedural vision set, on the
     key's device; returns (params, final *clean* accuracy on 512 images).
 
@@ -168,19 +162,36 @@ def train_cnn(key, cfg: CNNConfig, steps: int = 300, batch: int = 64,
     reference's.  ``noise=1.6`` keeps the task off the 1.0 accuracy
     ceiling, where faults would not flip an argmax (see
     ``repro.models.cnn.train_cnn``); keep it equal to ``CnnOracle.noise``.
-    Fault-aware training (the reference's ``fat`` arguments) is not ported
-    yet.
+
+    Fault-aware training (FAT): ``fat`` names a protection policy (or passes
+    one) whose faults the network trains through, every site through
+    ``protect_linear_ste`` on the ``fused`` backend (one ``fused_decode``
+    launch per site, as ``CnnOracle`` runs).  The BER ramps linearly
+    0 -> ``fat_ber`` over ``fat_ramp`` steps (default ``steps // 2``), a
+    float32 value per step; the fault key of step ``i`` is
+    ``fold_in(fold_in(key, i), 1)``, beside its data key.  The final
+    accuracy is clean either way.
     """
     from repro_torch.data.pipeline import vision_batch
     key = prng.as_key(key)
     dev = key.device
     params = init_cnn(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    mom = _rebuild(params, [torch.zeros_like(t) for t in _leaves(params)])
+    mom = tree_map(torch.zeros_like, params)
+    pol = None
+    if fat is not None:
+        from repro_torch.ft import as_policy
+        pol = as_policy(fat)
+        ramp = steps // 2 if fat_ramp is None else fat_ramp
     for i in range(steps):
-        imgs, labels = vision_batch(prng.fold_in(key, i), batch,
-                                    cfg.n_classes, cfg.hw, noise=noise,
-                                    seed=data_seed)
-        params, mom = sgd_step(params, mom, imgs, labels, cfg, lr)
+        k = prng.fold_in(key, i)
+        imgs, labels = vision_batch(k, batch, cfg.n_classes, cfg.hw,
+                                    noise=noise, seed=data_seed)
+        ftc = None
+        if pol is not None:
+            ber = fat_ber * min(i / ramp, 1.0) if ramp > 0 else fat_ber
+            ftc = FTCtx(pol.with_ber(_device.scalar(ber, torch.float32, dev)),
+                        prng.fold_in(k, 1), backend="fused", ste=True)
+        params, mom = sgd_step(params, mom, imgs, labels, cfg, lr, ftc)
     imgs, labels = vision_batch(prng.PRNGKey(7, dev), 512, cfg.n_classes,
                                 cfg.hw, noise=noise, seed=data_seed)
     with torch.no_grad():

@@ -74,6 +74,21 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ ft routing ---
+class EmuCtx:
+    """Structural-cost emulation of FlexHyCA protection (no faults, no
+    keys): the naive port of the DPPU as a second GEMM pass over the
+    important channels (``"two_pass"``) against protection in the same
+    tile pass (``"fused"``, no extra GEMM).  Both give the plain matmul's
+    values; they differ in cost only."""
+
+    def __init__(self, mode: str, s_th: float = 0.05):
+        if mode not in ("two_pass", "fused"):
+            raise ValueError(f"EmuCtx mode {mode!r}; expected 'two_pass' "
+                             "or 'fused'")
+        self.mode = mode
+        self.s_th = s_th
+
+
 class FTCtx:
     """Per-forward fault-tolerance context: a protection policy (or registry
     name), per-site importance masks, per-site keys and, for the pallas
@@ -91,11 +106,14 @@ class FTCtx:
     ``/``) that whole-layer-TMR policies protect, None for all.  ``dyn``
     optionally overrides the policy's numeric knobs (``{"ib_th", "nb_th",
     "q_scale"}``, ints or int tensors), as the DSE's batched oracle does.
-    (The reference's ``ste`` field comes with fault-aware training.)
+    ``ste=True`` routes every site through ``protect_linear_ste`` (forward
+    the faulty datapath bit for bit, backward the clean matmul's
+    gradients): fault-aware training.
     """
 
     def __init__(self, ft, key, masks=None, protected_layers=None,
-                 backend: str = "reference", t=None, dyn=None):
+                 backend: str = "reference", t=None, dyn=None,
+                 ste: bool = False):
         from repro_torch.ft import as_policy
         self.ft = as_policy(ft)
         self.key = key
@@ -104,6 +122,7 @@ class FTCtx:
         self.backend = backend
         self.t = t
         self.dyn = dyn
+        self.ste = ste
 
     def site_key(self, name: str) -> torch.Tensor:
         return prng.fold_in(self.key, zlib.crc32(name.encode()))
@@ -120,15 +139,28 @@ class FTCtx:
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
-           ftc: FTCtx | None = None, name: str = "") -> torch.Tensor:
-    """Every projection routes through here: the clean matmul, or, under a
-    policy, ``protect_linear`` on float32 operands with the result cast back
+           ftc: FTCtx | EmuCtx | None = None, name: str = "") -> torch.Tensor:
+    """Every projection routes through here: the clean matmul, its cost
+    emulation (``EmuCtx``), or, under a policy, ``protect_linear`` (or
+    ``protect_linear_ste``) on float32 operands with the result cast back
     to the compute dtype (the reference's order)."""
-    if ftc is None or ftc.ft is None:
+    if isinstance(ftc, EmuCtx):
+        w2 = w.reshape(w.shape[0], -1)
+        y = x @ w2
+        if ftc.mode == "two_pass":
+            # the DPPU as a separate pass: recompute the important channels
+            # from a second weight read and vote
+            k = max(int(ftc.s_th * w2.shape[1]), 1)
+            y_sel = x @ w2[:, :k]
+            y = torch.cat([((y[..., :k] + y_sel) * 0.5).to(y.dtype),
+                           y[..., k:]], dim=-1)
+        y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    elif ftc is None or ftc.ft is None:
         y = x @ w.reshape(w.shape[0], -1)
         y = y.reshape(*x.shape[:-1], *w.shape[1:])
     else:
-        from repro_torch.ft import protect_linear
+        from repro_torch.ft import protect_linear, protect_linear_ste
+        pl = protect_linear_ste if ftc.ste else protect_linear
         w2 = w.reshape(w.shape[0], -1).to(torch.float32)
         imp = ftc.masks.get(name)
         prot = (ftc.protected_layers is None
@@ -140,12 +172,11 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
             reps = max(x.numel() // x.shape[-1], 1) // sk.shape[0]
             if reps != 1:
                 sk = torch.repeat_interleave(sk, reps, dim=0)
-        y = protect_linear(
-            sk, x.to(torch.float32).reshape(-1, w.shape[0]), w2, ftc.ft,
-            important=None if imp is None else torch.as_tensor(
-                imp, device=x.device),
-            layer_protected=prot, backend=ftc.backend, t=ftc.site_t(name),
-            dyn=ftc.dyn)
+        y = pl(sk, x.to(torch.float32).reshape(-1, w.shape[0]), w2, ftc.ft,
+               important=None if imp is None else torch.as_tensor(
+                   imp, device=x.device),
+               layer_protected=prot, backend=ftc.backend, t=ftc.site_t(name),
+               dyn=ftc.dyn)
         y = y.reshape(*x.shape[:-1], *w.shape[1:]).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)

@@ -1,7 +1,7 @@
 """Public model API: build a Model from (ModelConfig, RunConfig).
 
-Counterpart of ``repro.models.model`` for serving: ``init``, ``prefill``
-(with the cache ``grow``), ``decode_step`` and ``init_cache``.  Parameters
+Counterpart of ``repro.models.model``: ``init``, ``loss`` (training),
+``prefill`` (with the cache ``grow``), ``decode_step`` and ``init_cache``.  Parameters
 and caches are plain dicts of tensors.
 """
 from __future__ import annotations
@@ -26,6 +26,22 @@ class Model:
         from ``generator`` (which must live on ``device``)."""
         return T.init_params(generator, self.cfg, self.run,
                              _device.resolve(device))
+
+    def loss(self, params, batch, ftc=None):
+        """Mean next-token cross-entropy of ``batch`` under ``ftc`` (None:
+        the clean forward, or the ``run.ft_emu`` cost emulation where it is
+        set).  Returns (loss, {"nll", "aux"}); the dense family has no
+        auxiliary loss, so ``aux`` is 0."""
+        cfg, run = self.cfg, self.run
+        if ftc is None and run.ft_emu:
+            from repro_torch.models.common import EmuCtx
+            ftc = EmuCtx(run.ft_emu, run.ft_s_th)
+        x, labels, mask = T.assemble_inputs(params, cfg, batch)
+        h, _ = T.backbone(params, x, cfg=cfg, run=run, mode="train", ftc=ftc)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        nll = T.chunked_xent(params, cfg, run, h, labels, mask)
+        aux = torch.zeros((), device=nll.device)
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, batch, max_len: int | None = None, ftc=None,
                 last_index=None):

@@ -10,6 +10,7 @@ every layer of a segment shares its site names and fault keys.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp
 from repro_torch.models.common import dtype_of, embed_init, rms_norm, softcap
@@ -91,18 +92,37 @@ def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
 # -------------------------------------------------------------- backbone ---
 def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
              ftc=None):
-    """Apply all layers.  Returns (hidden, new_caches)."""
+    """Apply all layers.  Returns (hidden, new_caches); no caches in mode
+    "train", where ``run.remat == "block"`` recomputes each layer in the
+    backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+    a scanned block).  The recompute draws the same fault keys, so a
+    faulty forward recomputes bit for bit."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    train = mode == "train"
     new_caches = {}
     for i, (kind, name) in enumerate(zip(layer_kinds(cfg), layer_names(cfg))):
         lid = f"l{i}"
+        if train:
+            def layer(p, h, kind=kind, name=name):
+                return apply_layer(p, h, kind=kind, cfg=cfg, run=run,
+                                   mode=mode, positions=positions, ftc=ftc,
+                                   name=name)[0]
+            p = params["layers"][lid]
+            if run.remat == "block" and torch.is_grad_enabled():
+                # the fault draws are counter-based: no RNG state to keep
+                x = checkpoint(layer, p, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(p, x)
+            continue
         x, new_caches[lid] = apply_layer(
             params["layers"][lid], x, kind=kind, cfg=cfg, run=run, mode=mode,
             cache=None if caches is None else caches[lid],
             positions=positions, ftc=ftc, name=name)
-    return x, new_caches
+    return x, (None if train else new_caches)
 
 
 # ------------------------------------------------------------- embedding ---
@@ -123,6 +143,46 @@ def assemble_inputs(params, cfg, batch):
     x = embed_tokens(params, cfg, tokens)
     labels = tokens[:, 1:]
     return x, labels, torch.ones_like(labels, dtype=torch.bool)
+
+
+# ------------------------------------------------------------------ loss ---
+def _xent_chunk(hc, lc, mc, emb, cap):
+    """(sum of the chunk's masked token NLLs, its count of real tokens)."""
+    logits = softcap(hc.to(torch.float32) @ emb.to(torch.float32).T, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, lc.clamp(min=0).unsqueeze(-1),
+                              dim=-1)[..., 0]
+    m = mc.to(torch.float32)
+    return ((lse - ll) * m).sum(), m.sum()
+
+
+def chunked_xent(params, cfg, run, h, labels, mask):
+    """Mean cross-entropy of ``labels`` over ``mask``, the (tokens, vocab)
+    logits formed ``run.loss_chunk`` tokens at a time (float32, bf16
+    products exact) and summed chunk by chunk in the reference's order;
+    each chunk's logits are recomputed in the backward pass."""
+    emb = params.get("unembed", params["embed"])
+    Sm = labels.shape[1]
+    hs = h[:, :Sm]
+    C = min(run.loss_chunk, Sm)
+    n = -(-Sm // C)
+    pad = n * C - Sm
+    if pad:
+        hs = torch.nn.functional.pad(hs, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(n):
+        args = (hs[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C],
+                mask[:, i * C:(i + 1) * C], emb, cfg.logit_softcap)
+        if torch.is_grad_enabled():
+            nll, m = checkpoint(_xent_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            nll, m = _xent_chunk(*args)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def last_logits(params, cfg, h, index=None):

@@ -1,0 +1,3 @@
+from repro_torch.train.train_step import (  # noqa: F401
+    init_state, make_decode_step, make_prefill_step, make_train_step)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: F401

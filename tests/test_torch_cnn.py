@@ -1,7 +1,8 @@
 """The port's CNN paper path against the reference's, on the tiny oracle of
 tests/test_batched_dse.py (vgg, channels (8,), 8x8 images, trained 60
-steps in JAX; n_eval 96, n_rep 2, noise 0.8), its parameters carried
-across by ``convert.cnn_params_from_jax``.
+steps in JAX, whose first step the SGD test reuses; n_eval 96, n_rep 2,
+noise 0.8), its parameters carried across by
+``convert.cnn_params_from_jax``.
 
 ``prng.normal`` is within 3 float32 ulps of ``jax.random.normal`` (not
 bitwise: ``log1p`` is each framework's own), so the port's oracle is given
@@ -52,6 +53,7 @@ torch.set_num_threads(1)
 
 CFG = dict(channels=(8,), hw=8)
 ORACLE = dict(n_eval=96, n_rep=2, noise=0.8)
+REF_STEPS = 60           # the reference's training steps of the oracle's net
 BACKENDS = ("reference", "fused")
 # logits: the reference's protect_linear is jitted, and XLA orders its
 # rescale's float products its own way (ROADMAP.md §C), so faulty logits
@@ -80,11 +82,42 @@ def _pol(ft, key):
     return ft.get_policy(name, ber=ber, **tune)
 
 
+class _Trained(Exception):
+    """Raised from the reference's last training step: the oracle takes its
+    parameters, not the final accuracy ``train_cnn`` goes on to evaluate
+    eagerly on 512 images."""
+
+
 @pytest.fixture(scope="module")
-def ref():
-    cfg = jcnn.CNNConfig(**CFG)
-    params, _ = jcnn.train_cnn(jax.random.PRNGKey(0), cfg, steps=60)
-    return JOracle(params, cfg, **ORACLE)
+def ref_training():
+    """The reference's 60 training steps of the tiny oracle's network:
+    (its parameters, the parameters after its first step), read off its
+    jitted step."""
+    outs = []
+    real_jit = jax.jit
+
+    def recording_jit(f, *a, **kw):
+        jitted = real_jit(f, *a, **kw)
+        if getattr(f, "__name__", "") != "step":
+            return jitted
+
+        def call(*args):
+            out = jitted(*args)
+            outs.append(out[0])
+            if len(outs) == REF_STEPS:
+                raise _Trained
+            return out
+        return call
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(_Trained):
+        mp.setattr(jax, "jit", recording_jit)
+        jcnn.train_cnn(jax.random.PRNGKey(0), jcnn.CNNConfig(**CFG),
+                       steps=REF_STEPS)
+    return outs[-1], jax.tree.map(np.asarray, outs[0])
+
+
+@pytest.fixture(scope="module")
+def ref(ref_training):
+    return JOracle(ref_training[0], jcnn.CNNConfig(**CFG), **ORACLE)
 
 
 @pytest.fixture(scope="module")
@@ -285,14 +318,14 @@ def test_importance_scores_and_masks(ref, port):
                 np.testing.assert_array_equal(mg[k], mw[k])
 
 
-def test_one_sgd_step():
+def test_one_sgd_step(ref_training):
     """train_cnn's step (``sgd_step``, momentum 0.9, lr 3e-3) from the
     reference's initial parameters on its first batch (the port's
     ``vision_batch(fold_in(key, 0))``): parameters within STEP_ATOL of the
-    reference's ``train_cnn(steps=1)``."""
+    reference ``train_cnn``'s after its first step."""
     cfg = jcnn.CNNConfig(**CFG)
     key = jax.random.PRNGKey(0)
-    want, _ = jcnn.train_cnn(key, cfg, steps=1)
+    want = ref_training[1]
     init = jcnn.init_cnn(key, cfg)
     params = cnn_params_from_jax(jax.tree.map(np.asarray, init),
                                  device="cpu")

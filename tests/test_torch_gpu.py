@@ -661,3 +661,93 @@ def test_capture_with_a_host_sync_raises(cuda):
                          text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=src))
     assert out.stdout.startswith("raised True"), (out.stdout, out.stderr)
+
+
+# ------------------------------------------------------------- training --
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy_name", ("cl", "crt3", "arch"))
+def test_ste_forward_equals_cpu(cuda, policy_name):
+    """protect_linear_ste on the card (fused backend): its forward equals
+    the CPU's plain version on equal operands, bitwise, and its gradients
+    are the clean matmul's."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((64, 200)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((200, 130)).astype(np.float32))
+    pol = ft.get_policy(policy_name, ber=1e-2, weight_faults=False)
+    key = prng.PRNGKey(21)
+    want = ft.protect_linear(key, x, w, pol, backend="reference")
+    xs, ws = (t.to(cuda).requires_grad_(True) for t in (x, w))
+    y = ft.protect_linear_ste(key.to(cuda), xs, ws, pol, backend="fused")
+    assert torch.equal(y.detach().cpu(), want)
+    g = torch.ones_like(y)
+    gx, gw = torch.autograd.grad(y, (xs, ws), g)
+    assert torch.equal(gx, g @ ws.detach().T)
+    assert torch.equal(gw, xs.detach().T @ g)
+
+
+@pytest.mark.gpu
+def test_fat_train_step_launches_equal_plain(cuda, monkeypatch):
+    """One FAT train step of the reduced model on the card (crt1 at BER
+    1e-2, fused backend, every layer recomputed in the backward pass):
+    every fused_decode launch equals fused_ref on its operands, bitwise,
+    7 sites x 2 layers x 2 (forward and recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    model = build(get_config("h2o-danube-1.8b", reduced=True),
+                  RunConfig(param_dtype="float32", compute_dtype="float32"))
+    params = _to(_reduced_params(), cuda)
+    state = {"params": params, **init_opt_state(params, AdamWConfig())}
+    real, n = fops.fused_decode, 0
+
+    def checked(xq, wq, oflips, q_scale, **kw):
+        nonlocal n
+        y, t = real(xq, wq, oflips, q_scale, **kw)
+        imp = kw.get("imp")
+        yr, tr = fused_ref(xq, wq, oflips, q_scale.reshape(()),
+                           per_row=kw["per_row"], wflips=kw.get("wflips"),
+                           wq_clean=kw.get("wq_clean"),
+                           dflips=kw.get("dflips"),
+                           imp=None if imp is None else imp.reshape(-1))
+        assert torch.equal(y.to(torch.int32), yr), n
+        assert torch.equal(t.reshape(-1), torch.broadcast_to(
+            tr.reshape(-1, 1), t.shape).reshape(-1)), n
+        n += 1
+        return y, t
+    monkeypatch.setattr(fops, "fused_decode", checked)
+    step = make_train_step(model, AdamWConfig(), policy="crt1", ft_ber=1e-2,
+                           ft_backend="fused")
+    toks = torch.randint(0, model.cfg.vocab, (4, 32),
+                         generator=torch.Generator().manual_seed(2))
+    new, metrics = step(state, {"tokens": toks.to(cuda)})
+    assert n == 7 * 2 * 2
+    assert torch.isfinite(metrics["loss"]) and int(new["step"]) == 1
+
+
+@pytest.mark.gpu
+def test_checkpoint_bf16_round_trip(cuda, tmp_path):
+    """A train state with bf16 parameters and float32 moments on the card:
+    saved and restored to the card, every leaf bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import init_state
+    from repro_torch.tree import items
+    model = build(get_config("h2o-danube-1.8b", reduced=True), RunConfig())
+    state = init_state(model, torch.Generator(device=cuda).manual_seed(3),
+                       AdamWConfig(), cuda)
+    state["m"]["embed"].normal_()
+    state["step"].fill_(9)
+    ckpt.save(str(tmp_path), state, 9, data_state={"step": 9})
+    like = init_state(model, torch.Generator(), AdamWConfig(), "meta")
+    got, step, ds = ckpt.restore(str(tmp_path), like, device=cuda)
+    assert step == 9 and ds == {"step": 9}
+    assert got["params"]["embed"].dtype == torch.bfloat16
+    for (name, a), (_, b) in zip(items(state), items(got)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name

@@ -23,7 +23,10 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.core.strategies, repro_torch.core.pipeline, "
             "repro_torch.core.flexhyca, repro_torch.core.importance, "
             "repro_torch.core.evaluate, repro_torch.data.pipeline, "
-            "repro_torch.models.cnn; "
+            "repro_torch.models.cnn, repro_torch.tree, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.train, "
+            "repro_torch.train.train_step, repro_torch.train.checkpoint, "
+            "repro_torch.train.trainer, repro_torch.launch.train; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

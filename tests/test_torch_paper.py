@@ -42,6 +42,23 @@ from repro_torch.core import strategies as TS
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for this module's GP solves, in both packages: their
+    matrices are at most a few hundred wide, where OpenBLAS's threads only
+    spin, and the suite runs in parallel worker processes whose spinning
+    pools take each other's cores (a DSE case here took 1-3 s alone and
+    24-44 s beside a second run of this suite)."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        yield
+        return
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
+
 # quant_error is a float32 RMS ratio: each framework sums its squares in its
 # own order, so the two may part in the last places of float32
 QUANT_ERROR_RTOL = 1e-6
