@@ -72,6 +72,19 @@ its last line:
      request's tokens equal phase 8's bitwise, and the lone request's on a
      second run of the same Scheduler; capture s, chunk-call and
      prefill-call s, tokens/s, replay ms, peak memory, a profiled replay;
+  8c. families: the MoE, Mamba2-SSD and RG-LRU families at their published
+     widths (phase_family's docstring; FAMILIES: mamba2-2.7b at all 64
+     layers, recurrentgemma-9b at all 38, qwen3-moe-235b-a22b at 4 of its
+     94 with all 128 experts), random bf16 weights from a seed, B = 4, a
+     64-token prompt, 8 new tokens, crt3 at BER 1e-4: the scan's graph
+     tokens equal the reference backend's and the eager loop's, whose
+     every fused_decode launch is held bitwise to fused_ref; the kernel
+     once per protected projection of every step; an exact-length
+     Scheduler run per family (4 slots, 6 requests of 8-48 prompt
+     tokens), fused equal to reference; prefill ms, scan decode tokens/s,
+     a replay's ms and busy share, peak memory (the kernel phase also
+     checks and times every (K, N) these models launch at M = 4 and
+     M = 256);
   9. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
@@ -112,7 +125,7 @@ its last line:
      its path, and the kernel phase's sums of kernel, bound, plain and
      ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
      fused_decode's also the same for its scheduler run, its DSE run and
-     its two training runs),
+     its two training runs, and the families phase's generations),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -184,6 +197,18 @@ TRAIN = dict(seq=64, batch=4, clean_steps=2, fat_steps=2, policy="crt3",
              ber=1e-4, fat_ramp=2, fat_seed=17, trainer_layers=2,
              trainer_fat_steps=4, ckpt_every=2, cnn_steps=250,
              cnn_fat_ber=2e-3, cnn_batch=64, ste_rtol=1e-6)
+# the families phase: each architecture at its published widths, at this
+# many layers (None: all): mamba2-2.7b's 64 (5.4 GB of bf16),
+# recurrentgemma-9b's 38 (17 GB), qwen3-moe-235b-a22b at 4 of its 94 (its
+# ~470 GB cannot fit one card; all 128 experts, top-8); B = 4, a 64-token
+# prompt, 8 new tokens, crt3 at BER 1e-4 without weight faults; then 6
+# requests of 8-48 prompt tokens through an exact-length Scheduler
+FAMILIES = {"mamba2-2.7b": None, "recurrentgemma-9b": None,
+            "qwen3-moe-235b-a22b": 4}
+FAM = dict(batch=4, prompt=64, new=8, policy="crt3", ber=1e-4)
+FAM_SCHED = dict(max_batch=4, buckets=None, max_prompt=48,
+                 max_new_tokens=8, decode_chunk=4, kv="paged", block_size=16)
+FAM_PROMPTS = (8, 16, 24, 32, 40, 48)
 # VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
 # benchmarks/workloads.py (which imports the JAX package): (name, out_hw,
 # k, cin, cout), then the three fc layers; the first 40% are "sensitive"
@@ -293,6 +318,53 @@ def scheduler_shapes():
     kns = sorted(set(LAYER_KN))
     return ([((b, k, n), False) for b in SCHED["buckets"] for k, n in kns]
             + [((SCHED["max_batch"], k, n), True) for k, n in kns])
+
+
+def family_config(arch):
+    """The families phase's config of ``arch``: published widths, at
+    ``FAMILIES[arch]`` layers where set."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if FAMILIES[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILIES[arch])
+    return cfg
+
+
+def family_kn(cfg):
+    """(K, N) of each protected projection of one forward, in call order:
+    attention wq wk wv wo; RG-LRU w_gate w_x w_out; SSD in_proj out_proj;
+    then the MoE router or the MLP's wi (wg) wo."""
+    from repro_torch.models.ssm import dims
+    from repro_torch.models.transformer import layer_kinds
+    D, out = cfg.d_model, []
+    for kind in layer_kinds(cfg):
+        if kind in ("G", "L"):
+            q, kv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+            out += [(D, q), (D, kv), (D, kv), (q, D)]
+        elif kind == "R":
+            W = cfg.rglru_width
+            out += [(D, W), (D, W), (W, D)]
+        elif kind == "S":
+            d_inner, H = dims(cfg)
+            out += [(D, 2 * d_inner + 2 * cfg.ssm.d_state + H), (d_inner, D)]
+        if cfg.moe is not None:
+            out.append((D, cfg.moe.n_experts))
+        elif cfg.d_ff:
+            F = cfg.d_ff
+            out += [(D, F)] * (2 if cfg.glu else 1) + [(F, D)]
+    return out
+
+
+def family_launches():
+    """{(M, K, N): fused_decode launches of one families-phase generation}
+    over the three families: each projection once at prefill (M = B x
+    prompt) and once per decode step (M = B)."""
+    per_gen = collections.Counter()
+    for arch in FAMILIES:
+        for kn in family_kn(family_config(arch)):
+            per_gen[(FAM["batch"] * FAM["prompt"],) + kn] += 1
+            per_gen[(FAM["batch"],) + kn] += FAM["new"]
+    return per_gen
 
 
 def unprotected_planes(M, prot):
@@ -519,6 +591,33 @@ def phase_kernels(torch):
         sched_rows.append(row)
         emit({"phase": "kernel", "kernel": "fused_decode", **row})
         del ops
+    fam_rows = []
+    for (M, K, N), count in sorted(family_launches().items()):
+        ops = _operands(torch, g, dev, M, K, N)
+        max_err = max(max_err, _check_modes(torch, g, ops, (3,)),
+                      _check_modes(torch, g, _edges(ops), (0, 12, 20)))
+        ops = _operands(torch, g, dev, M, K, N)
+        qs = torch.tensor([3], dtype=torch.int32, device=dev)
+        args = (ops["xq"], ops["wq"], ops["oflips"], qs)
+        Mp = max(M, 24)                  # torch._int_mm takes M > 16
+        xpad = torch.zeros((Mp, K), dtype=torch.int8, device=dev)
+        xpad[:M] = ops["xq"]
+        b_ms, b_by = bound(M, K, N, (False, "none", False))
+        row = dict(shape=[M, K, N], path="families",
+                   mode="global t, no DPPU",
+                   launches_per_generation=count,
+                   plan=list(kernel.gemm_plan(M, K, N, sm_count(dev))),
+                   kernel_ms=cuda_ms(torch, functools.partial(
+                       kernel.fused_decode, *args), 20),
+                   bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=cuda_ms(torch, functools.partial(
+                       fused_ref, *args[:3], qs.reshape(())), 5),
+                   library_ms=cuda_ms(torch, functools.partial(
+                       torch._int_mm, xpad, ops["wq"]), 20))
+        row["bound_share"] = b_ms / row["kernel_ms"]
+        fam_rows.append(row)
+        emit({"phase": "kernel", "kernel": "fused_decode", **row})
+        del ops
     conv_rows = []
     for path, site, (M, K, N) in (
             [("dse", *c) for c in conv_shapes()]
@@ -556,7 +655,7 @@ def phase_kernels(torch):
             emit({"phase": "kernel", "kernel": "fused_decode", **row})
         del ops
     torch.cuda.synchronize()
-    return rows, sched_rows, conv_rows, max_err
+    return rows, sched_rows, conv_rows, fam_rows, max_err
 
 
 # ------------------------------------------------ qmatmul, protected_mm, inject
@@ -1477,6 +1576,236 @@ def phase_graph_scheduler(torch, m, eager):
     torch.cuda.empty_cache()
 
 
+def family_workload(vocab):
+    """(rid, prompt, max_new_tokens) of a family's Scheduler run: one
+    request of each of FAM_PROMPTS' lengths, FAM["new"] tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(19)
+    return [(rid, [int(t) for t in rng.integers(0, vocab, n)], FAM["new"])
+            for rid, n in enumerate(FAM_PROMPTS)]
+
+
+def phase_families(torch):
+    """The MoE, Mamba2-SSD and RG-LRU families at their published widths
+    (``FAMILIES``' depths): each through phase_family.  Returns
+    {arch: that family's counts and times}."""
+    out = {}
+    for arch in FAMILIES:
+        out[arch] = phase_family(torch, arch)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_family(torch, arch):
+    """One family at full width on the fused backend, crt3 at BER 1e-4:
+
+      * Engine(loop="scan"): a generation (the prefill, the warm-up step,
+        the capture, then replays) whose tokens equal the reference
+        backend's scan, and the capture holds one fused_decode call per
+        protected projection; a second generation replays only: its
+        decode tokens/s with its own prefill (timed inside it) off its
+        wall time; replays timed and one profiled (busy share, the
+        kernel's two kernels once per projection);
+      * Engine(loop="python") on the same model: the graph's tokens, with
+        fused_decode launched once per projection of the prefill and of
+        every step, each launch held bitwise to fused_ref on the card;
+      * an exact-length Scheduler (4 slots, 6 requests of 8-48 prompt
+        tokens, each step a graph replay): fused tokens equal the
+        reference backend's, launches once per projection per prefill and
+        per decode step."""
+    from repro_torch import ft
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    Bf, P, NEWF = FAM["batch"], FAM["prompt"], FAM["new"]
+    cfg = family_config(arch)
+    per_step = len(family_kn(cfg))
+    model = build(cfg, get_run_config(arch))
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (Bf, P), generator=g,
+                                     device=dev)}
+    policy = ft.get_policy(FAM["policy"], ber=FAM["ber"],
+                           weight_faults=False)
+    scfg = ServeConfig(max_new_tokens=NEWF)
+
+    # -- the scan: graph replays, against the reference backend's scan --
+    engine = Engine(model, params, cfg=scfg, policy=policy,
+                    ft_backend="fused", loop="scan")
+    kernel.fused_decode.launches = 0        # the path's run starts here
+    t0 = time.perf_counter()
+    toks = engine.generate(batch, seed=0)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    python_calls = kernel.fused_decode.launches  # ... and ends here
+    step = engine._scan_step
+    graph = step.graph
+    if python_calls != 3 * per_step:
+        raise AssertionError(f"{arch}: fused_decode's wrapper was called "
+                             f"{python_calls} times, expected "
+                             f"{3 * per_step} (the prefill, the warm-up "
+                             "step and the capture)")
+    launches = _graph_launches(graph, python_calls, "fused_decode", per_step)
+    if launches != per_step * (1 + NEWF) or graph.replays != NEWF - 1:
+        raise AssertionError(f"{arch}: fused_decode launched {launches} "
+                             f"times in {graph.replays} replays")
+    if toks.shape != (Bf, NEWF) or not bool(((toks >= 0)
+                                             & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+    ref_engine = Engine(model, params, cfg=scfg, policy=policy,
+                        ft_backend="reference", loop="scan")
+    t0 = time.perf_counter()
+    ref_toks = ref_engine.generate(batch, seed=0)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    if kernel.fused_decode.launches != python_calls:
+        raise AssertionError(f"{arch}: the reference backend launched the "
+                             "kernel")
+    if not torch.equal(toks, ref_toks):
+        raise AssertionError(f"{arch}: fused scan tokens differ from the "
+                             f"reference backend's:\n{toks.cpu()}\n"
+                             f"{ref_toks.cpu()}")
+    del ref_engine
+    torch.cuda.empty_cache()
+    timer = PrefillTimer(torch, engine.model)
+    engine.model = timer
+    t0 = time.perf_counter()
+    again = engine.generate(batch, seed=0)  # loads and replays only
+    torch.cuda.synchronize()
+    replay_generate_s = time.perf_counter() - t0
+    engine.model = timer.model
+    if engine._scan_step is not step or not torch.equal(again, toks):
+        raise AssertionError(f"{arch}: a second generation did not replay "
+                             "the first one's graph to its tokens")
+    tps = Bf * NEWF / (replay_generate_s - timer.ms / 1e3)
+    event_ms, wall_ms = _replay_times(torch, graph, lambda: None)
+    prof = _replay_profile(torch, graph, lambda: None, "fused_decode_",
+                           2 * per_step, wall_ms)
+    capture_s = graph.capture_s
+    del engine, step, graph
+    torch.cuda.empty_cache()
+
+    # -- the eager loop: the graph's tokens, every launch checked --
+    seen = collections.Counter()
+    real, checked = _checked_fused_decode(torch, seen)
+    eager = Engine(model, params, cfg=scfg, policy=policy,
+                   ft_backend="fused", loop="python")
+    fops.fused_decode = checked
+    kernel.fused_decode.launches = 0
+    t0 = time.perf_counter()
+    try:
+        eager_toks = eager.generate(batch, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        fops.fused_decode = real
+    eager_s = time.perf_counter() - t0
+    eager_launches = kernel.fused_decode.launches
+    if eager_launches != per_step * (1 + NEWF) or sum(
+            seen.values()) != eager_launches:
+        raise AssertionError(f"{arch}: the eager loop launched fused_decode "
+                             f"{eager_launches} times ({sum(seen.values())} "
+                             f"checked), expected {per_step * (1 + NEWF)}")
+    if not torch.equal(eager_toks, toks):
+        raise AssertionError(f"{arch}: graph tokens differ from the eager "
+                             f"loop's:\n{toks.cpu()}\n{eager_toks.cpu()}")
+    del eager
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "families", "step": "engine", "arch": arch,
+          "family": cfg.family, "layers": cfg.n_layers,
+          "published_layers": get_config(arch).n_layers,
+          "params": n_params, "param_dtype": "bfloat16",
+          "init_s": init_s, "batch": Bf, "prompt": P, "new_tokens": NEWF,
+          "policy": FAM["policy"], "ber": FAM["ber"],
+          "prefill_ms": timer.ms, "decode_tokens_per_s": tps,
+          "generate_s": generate_s, "replay_generate_s": replay_generate_s,
+          "reference_generate_s": ref_s, "capture_s": capture_s,
+          "replay_wall_ms": wall_ms, "replay_event_ms": event_ms,
+          "device_busy_share": prof["device_busy_share"],
+          "launches_per_step": per_step, "launches": launches,
+          "eager_generate_s": eager_s, "eager_launches": eager_launches,
+          "checked_launches": sum(seen.values()),
+          "checked_shapes": len(seen),
+          "max_memory_allocated_bytes": peak,
+          "tokens_equal_reference": True, "tokens_equal_eager": True,
+          "tokens_row0": toks[0].tolist()})
+    emit({"phase": "profile", "backend": "fused", "step":
+          f"{arch}_scan_replay", **prof})
+
+    # -- the exact-length Scheduler, fused against reference --
+    spec = family_workload(cfg.vocab)
+
+    def requests():
+        return [Request(rid=r, tokens=list(t), max_new_tokens=k)
+                for r, t, k in spec]
+    outs, walls, stats = {}, {}, {}
+    for backend in ("fused", "reference"):
+        sched = Scheduler(model, params, SchedulerConfig(**FAM_SCHED),
+                          policy=policy, ft_backend=backend, loop="scan")
+        kernel.fused_decode.launches = 0    # the path's run starts here
+        t0 = time.perf_counter()
+        out = sched.run(requests())
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t0
+        calls = kernel.fused_decode.launches  # ... and ends here
+        st = sched.stats
+        if backend == "fused":
+            sgraph = sched._step.graph
+            if calls != per_step * (st.prefill_calls + 2):
+                raise AssertionError(
+                    f"{arch}: the Scheduler called fused_decode {calls} "
+                    f"times, expected {per_step * (st.prefill_calls + 2)}")
+            s_launches = _graph_launches(sgraph, calls, "fused_decode",
+                                         per_step)
+            want = per_step * (st.prefill_calls + FAM_SCHED["decode_chunk"]
+                               * st.chunk_calls)
+            if s_launches != want:
+                raise AssertionError(f"{arch}: the Scheduler launched "
+                                     f"fused_decode {s_launches} times, "
+                                     f"expected {want}")
+        elif calls:
+            raise AssertionError(f"{arch}: the reference backend launched "
+                                 "the kernel")
+        outs[backend] = {r: q.generated for r, q in out.items()}
+        stats[backend] = st
+        del sched
+    for r, _, k in spec:
+        got = outs["fused"][r]
+        if len(got) != k or not all(0 <= t < cfg.vocab for t in got):
+            raise AssertionError(f"{arch}: request {r} gave {got}")
+        if got != outs["reference"][r]:
+            raise AssertionError(f"{arch}: request {r}: fused tokens {got} "
+                                 "differ from the reference backend's "
+                                 f"{outs['reference'][r]}")
+    tokens = sum(len(t) for t in outs["fused"].values())
+    st = stats["fused"]
+    emit({"phase": "families", "step": "scheduler", "arch": arch,
+          "layers": cfg.n_layers, "config": FAM_SCHED,
+          "prompt_lens": list(FAM_PROMPTS), "tokens": tokens,
+          "wall_s": walls["fused"], "tokens_per_s": tokens / walls["fused"],
+          "reference_wall_s": walls["reference"],
+          "prefill_calls": st.prefill_calls, "chunk_calls": st.chunk_calls,
+          "launches": s_launches, "captured_calls": sgraph.captured_calls,
+          "tokens_equal_reference": True,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del model, params, sgraph
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step,
+                scheduler_launches=s_launches,
+                checked_launches=sum(seen.values()),
+                decode_tokens_per_s=tps, prefill_ms=timer.ms)
+
+
 def _first_split(torch, card_calls, cpu_calls):
     """The first projection whose int8 input differs between two runs'
     recorded calls (phase_split), or where their calls part."""
@@ -2369,10 +2698,10 @@ def _totals(rows, weight):
 
 
 def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
-                 sched, dse, train):
+                 sched, dse, train, families):
     """One entry for each of the port's four kernels; fused_decode's also
-    holds its scheduler path's run, its DSE path's and its training
-    paths'."""
+    holds its scheduler path's run, its DSE path's, its training paths'
+    and the families phase's."""
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
@@ -2445,6 +2774,25 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                        "step, global t, no DPPU): plain, bound, library and "
                        "kernel-phase sums from the kernel phase's batch-64 "
                        "conv rows x launches; library_ms pads K = 9 to 16"))
+    fam_rows, fam = families
+    tot = _totals(fam_rows, lambda r: r["launches_per_generation"])
+    out[0].update(
+        families_launches=sum(f["launches"] for f in fam.values()),
+        families_launches_per_step={a: f["per_step"]
+                                    for a, f in fam.items()},
+        families_checked_launches=sum(f["checked_launches"]
+                                      for f in fam.values()),
+        families_scheduler_launches=sum(f["scheduler_launches"]
+                                        for f in fam.values()),
+        **{f"families_{k}": v for k, v in tot.items()},
+        families_per=(f"the families phase's scan generations (B="
+                      f"{FAM['batch']}, prompt {FAM['prompt']}, "
+                      f"{FAM['new']} new; "
+                      + ", ".join(f"{a} at {family_config(a).n_layers} "
+                                  "layers" for a in FAMILIES)
+                      + "): launches from the graphs' counts; plain, bound, "
+                      "library and kernel-phase sums from the kernel "
+                      "phase's family rows x launches"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
@@ -2499,7 +2847,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     seconds["phase_build"] = time.perf_counter() - t0
-    rows, sched_rows, conv_rows, max_err = run(phase_kernels)
+    rows, sched_rows, conv_rows, fam_rows, max_err = run(phase_kernels)
     dla, dla_err = run(phase_dla_kernels)
     entry, entry_bound = run(phase_entry_points)
     m = run(full_model)
@@ -2513,6 +2861,7 @@ def main() -> int:
     run(phase_graph_scheduler, m, sched)
     del m
     torch.cuda.empty_cache()
+    families = run(phase_families)
     run(phase_faults)
     dse = run(phase_dse)
     train = run(phase_train)
@@ -2521,7 +2870,8 @@ def main() -> int:
     emit(kernels_line(name, smi, (rows, sched_rows, conv_rows, max_err,
                                   fused["launches"], fused["ms"]), dla,
                       dla_err, (pallas["launches"], pallas["ms"]), entry,
-                      entry_bound, sched, dse, train))
+                      entry_bound, sched, dse, train,
+                      (fam_rows, families)))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

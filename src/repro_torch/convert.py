@@ -9,7 +9,12 @@ reads both of the reference's layouts:
     along axis 0 over a segment's super-blocks, one ``s{j}`` per pattern
     position.
 
-The port keeps one dict per layer either way; which site names key the
+Every leaf crosses as it is, whatever the layer's family: the MoE's expert
+stacks ``(E, d_in, d_out)`` and float32 router, the SSM's ``A_log``, ``D``,
+``dt_bias``, ``conv_w`` and ``norm``, the RG-LRU's block-diagonal
+``(heads, bw, bw)`` gates and ``lam``; a config's tail is its own segment
+(recurrentgemma's ``seg1`` of R layers).  The port keeps one dict per layer
+either way; which site names key the
 fault draws follows ``cfg.unroll`` (``repro_torch.models.transformer``).
 
 ``train_state_from_jax(state, cfg)`` takes the reference's train state

@@ -1,11 +1,14 @@
 """Serving launcher of the port: batched greedy generation on the GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       [--smoke] [--batch 4] [--prompt-len 64] [--new 16] \
       [--loop scan|python] [--policy crt3 --ber 1e-4 [--weight-faults]] \
       [--device cpu]
 
 Counterpart of ``repro.launch.serve`` (no mesh) on the fused backend.
+``--arch`` takes any architecture the port registers
+(``repro_torch.configs.ARCHS``): the dense decoders, the MoE models
+(qwen3-moe-235b-a22b, dbrx-132b), mamba2-2.7b and recurrentgemma-9b.
 ``--loop scan`` (the default, as the reference's) replays each decode step
 as a CUDA graph on the card; ``--loop python`` runs one step per host
 round trip.  The weights and prompts are random, from fixed seeds;
@@ -17,10 +20,12 @@ from __future__ import annotations
 import argparse
 import time
 
+from repro_torch.configs import ARCHS
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

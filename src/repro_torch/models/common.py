@@ -62,8 +62,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ------------------------------------------------------------ activations --
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * logistic(x), the logistic as XLA expands it,
+    1 / (1 + exp(-x)), each op rounded to the operands' dtype (in bf16 the
+    fused ``F.silu`` parts from it by several ulps)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
 def activation(name: str):
-    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    return {"silu": silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu}[name]
 
 

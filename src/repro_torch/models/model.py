@@ -12,7 +12,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models import attention, transformer as T
+from repro_torch.models import attention, ssm, transformer as T
 from repro_torch.models.common import dtype_of, rms_norm
 
 
@@ -37,29 +37,31 @@ class Model:
             from repro_torch.models.common import EmuCtx
             ftc = EmuCtx(run.ft_emu, run.ft_s_th)
         x, labels, mask = T.assemble_inputs(params, cfg, batch)
-        h, _ = T.backbone(params, x, cfg=cfg, run=run, mode="train", ftc=ftc)
+        h, _, aux = T.backbone(params, x, cfg=cfg, run=run, mode="train",
+                               ftc=ftc)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         nll = T.chunked_xent(params, cfg, run, h, labels, mask)
-        aux = torch.zeros((), device=nll.device)
         return nll + aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, batch, max_len: int | None = None, ftc=None,
                 last_index=None):
         """Forward over a prompt, building the caches.  ``max_len`` reserves
-        decode room in full-attention caches; rolling (window) caches keep
-        their fixed capacity.  ``last_index`` (B,) takes each row's logits at
-        its last real token of a right-padded prompt.  Returns (caches,
-        last_token_logits)."""
+        decode room in full-attention caches; rolling (window) caches and
+        recurrent state keep their fixed sizes.  ``last_index`` (B,) takes
+        each row's logits at its last real token of a right-padded prompt.
+        Returns (caches, last_token_logits)."""
         cfg, run = self.cfg, self.run
         x, _, _ = T.assemble_inputs(params, cfg, batch)
-        h, caches = T.backbone(params, x, cfg=cfg, run=run, mode="prefill",
-                               ftc=ftc)
+        h, caches, _ = T.backbone(params, x, cfg=cfg, run=run,
+                                  mode="prefill", ftc=ftc)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         if max_len is not None:
             S = x.shape[1]
             pad = max(max_len - S, 0)
             for lid, kind in zip(caches, T.layer_kinds(cfg)):
-                if pad and not (kind == "L" and cfg.window):
+                # only full-attention caches grow; rolling (window) caches
+                # and the R/S layers' state rows keep their sizes
+                if pad and (kind == "G" or (kind == "L" and not cfg.window)):
                     caches[lid]["attn"] = {
                         n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
                         for n, c in caches[lid]["attn"].items()}
@@ -75,30 +77,50 @@ class Model:
         pos = _device.scalar(pos, torch.int64, token.device)
         positions = (pos.reshape(B, 1) if pos.dim()
                      else pos.expand(B).reshape(B, 1))
-        h, new_caches = T.backbone(params, x, cfg=cfg, run=run, mode="decode",
-                                   caches=caches, positions=positions,
-                                   ftc=ftc)
+        h, new_caches, _ = T.backbone(params, x, cfg=cfg, run=run,
+                                      mode="decode", caches=caches,
+                                      positions=positions, ftc=ftc)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         return new_caches, T.last_logits(params, cfg, h)
 
     def init_cache(self, batch: int, seq_len: int, device=None, *,
                    paged=None):
-        """Zero caches for decoding at context length ``seq_len``.
-        ``paged=(block_size, n_blocks)`` gives every attention layer the
-        paged layout (``attention.init_paged_cache``).  One ``l{i}`` entry
-        per layer whatever the config (the reference stacks scanned
-        segments)."""
+        """Zero caches for decoding at context length ``seq_len``, one
+        ``l{i}`` entry per layer whatever the config (the reference stacks
+        scanned segments).  ``paged=(block_size, n_blocks)`` gives every
+        attention layer the paged layout (``attention.init_paged_cache``);
+        the R and S layers' state stays in dense per-slot rows under either
+        layout: ``{"rglru": {"h", "conv"}}`` and ``{"ssd": {"state",
+        "conv"}}``, the recurrent state in float32 and the conv history in
+        the compute dtype."""
+        cfg = self.cfg
         dev = _device.resolve(device)
         dtype = dtype_of(self.run.compute_dtype)
 
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         def layer(kind):
+            if kind == "R":
+                return {"rglru": {
+                    "h": zeros((batch, cfg.rglru_width), torch.float32),
+                    "conv": zeros((batch, cfg.rglru_conv - 1,
+                                   cfg.rglru_width))}}
+            if kind == "S":
+                d_inner, H = ssm.dims(cfg)
+                s = cfg.ssm
+                return {"ssd": {
+                    "state": zeros((batch, H, s.head_dim, s.d_state),
+                                   torch.float32),
+                    "conv": zeros((batch, s.conv_width - 1,
+                                   d_inner + 2 * s.d_state))}}
             if paged is None:
-                return attention.init_cache(self.cfg, kind, batch, seq_len,
-                                            dtype, dev)
-            return attention.init_paged_cache(self.cfg, kind, batch, seq_len,
-                                              *paged, dtype, dev)
-        return {f"l{i}": {"attn": layer(kind)}
-                for i, kind in enumerate(T.layer_kinds(self.cfg))}
+                return {"attn": attention.init_cache(cfg, kind, batch,
+                                                     seq_len, dtype, dev)}
+            return {"attn": attention.init_paged_cache(
+                cfg, kind, batch, seq_len, *paged, dtype, dev)}
+        return {f"l{i}": layer(kind)
+                for i, kind in enumerate(T.layer_kinds(cfg))}
 
 
 def build(cfg: ModelConfig, run: RunConfig | None = None) -> Model:

@@ -1,19 +1,24 @@
-"""Decoder LM assembly over attention layers.
+"""Decoder LM assembly over heterogeneous layers.
 
-Counterpart of ``repro.models.transformer`` for the kinds this slice serves
-(G global and L local attention).  Layers are kept as one dict per layer
-(``layers/l{i}``) whatever the config; the reference's layer *names*, which
-key every fault draw, follow its layout: ``l{i}`` for unrolled configs and
-``sb{si}/s{j}`` for scanned ones, where the scan body is traced once, so
-every layer of a segment shares its site names and fault keys.
+Counterpart of ``repro.models.transformer`` for the decoder families: G
+global and L local attention, R RG-LRU and S Mamba2 SSD mixers, with a
+dense (G)LU or an MoE feed-forward block.  Layers are kept as one dict per
+layer (``layers/l{i}``) whatever the config; the reference's layer *names*,
+which key every fault draw, follow its layout: ``l{i}`` for unrolled
+configs and ``sb{si}/s{j}`` for scanned ones, where the scan body is traced
+once, so every layer of a segment shares its site names and fault keys.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import dtype_of, embed_init, rms_norm, softcap
+
+# the mixer of each layer kind, and its key in the layer's params and cache
+MIXERS = {"G": (attention, "attn"), "L": (attention, "attn"),
+          "R": (rglru, "rglru"), "S": (ssm, "ssd")}
 
 
 def layer_kinds(cfg):
@@ -29,7 +34,7 @@ def layer_names(cfg):
 
 
 def _check_kind(kind):
-    if kind not in ("G", "L"):
+    if kind not in MIXERS:
         raise NotImplementedError(f"layer kind {kind!r} comes with its "
                                   "model family (ROADMAP.md)")
 
@@ -37,17 +42,20 @@ def _check_kind(kind):
 # ------------------------------------------------------------------ init ---
 def init_layer(generator, cfg, kind, dtype, device):
     _check_kind(kind)
-    if cfg.moe is not None or cfg.enc_dec:
-        raise NotImplementedError("MoE and encoder-decoder layers are not "
-                                  "ported yet")
+    if cfg.enc_dec:
+        raise NotImplementedError("encoder-decoder layers are not ported "
+                                  "yet (ROADMAP.md, queue A item 4.4)")
     D = cfg.d_model
+    mixer, key = MIXERS[kind]
     p = {"ln1": torch.zeros((D,), device=device),
-         "attn": attention.init(generator, cfg, dtype, device)}
+         key: mixer.init(generator, cfg, dtype, device)}
     if cfg.post_norm:
         p["ln1_post"] = torch.zeros((D,), device=device)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.moe is not None:
         p["ln2"] = torch.zeros((D,), device=device)
-        p["ffn"] = mlp.init(generator, cfg, dtype, device)
+        p["ffn"] = (moe.init(generator, cfg, dtype, device)
+                    if cfg.moe is not None
+                    else mlp.init(generator, cfg, dtype, device))
         if cfg.post_norm:
             p["ln2_post"] = torch.zeros((D,), device=device)
     return p
@@ -70,66 +78,79 @@ def init_params(generator, cfg, run, device):
 # ----------------------------------------------------------------- layer ---
 def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
                 ftc=None, name="blk"):
-    """One residual layer.  Returns (x, new_cache)."""
+    """One residual layer.  Returns (x, new_cache, aux_loss): the cache is
+    ``{"attn": ...}``, ``{"rglru": ...}`` or ``{"ssd": ...}`` by kind, and
+    the aux loss is the MoE block's load-balance term (0 without one)."""
     _check_kind(kind)
+    mixer, key = MIXERS[kind]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    m, c = attention.apply(p["attn"], h, cfg=cfg, run=run, kind=kind,
-                           positions=positions, ftc=ftc, name=f"{name}/attn",
-                           cache=None if cache is None else cache["attn"],
-                           mode=mode)
+    kw = dict(kind=kind) if mixer is attention else {}
+    m, c = mixer.apply(p[key], h, cfg=cfg, run=run, positions=positions,
+                       ftc=ftc, name=f"{name}/{key}", mode=mode,
+                       cache=None if cache is None else cache[key], **kw)
     if cfg.post_norm:
         m = rms_norm(m, p["ln1_post"], cfg.norm_eps)
     x = x + m
+    aux = torch.zeros((), device=x.device)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        f = mlp.apply(p["ffn"], h, cfg, ftc=ftc, name=f"{name}/mlp")
+        if cfg.moe is not None:
+            f, aux = moe.apply(p["ffn"], h, cfg, ftc=ftc, name=f"{name}/moe")
+        else:
+            f = mlp.apply(p["ffn"], h, cfg, ftc=ftc, name=f"{name}/mlp")
         if cfg.post_norm:
             f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
         x = x + f
-    return x, {"attn": c}
+    return x, {key: c}, aux
 
 
 # -------------------------------------------------------------- backbone ---
 def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
              ftc=None):
-    """Apply all layers.  Returns (hidden, new_caches); no caches in mode
-    "train", where ``run.remat == "block"`` recomputes each layer in the
-    backward pass instead of keeping its activations
-    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
-    a scanned block).  The recompute draws the same fault keys, so a
-    faulty forward recomputes bit for bit."""
+    """Apply all layers.  Returns (hidden, new_caches, aux_loss_sum); no
+    caches in mode "train", where ``run.remat == "block"`` recomputes each
+    layer in the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of a
+    scanned block).  The recompute draws the same fault keys, so a faulty
+    forward recomputes bit for bit."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     train = mode == "train"
     new_caches = {}
+    aux_total = torch.zeros((), device=x.device)
     for i, (kind, name) in enumerate(zip(layer_kinds(cfg), layer_names(cfg))):
         lid = f"l{i}"
         if train:
             def layer(p, h, kind=kind, name=name):
-                return apply_layer(p, h, kind=kind, cfg=cfg, run=run,
-                                   mode=mode, positions=positions, ftc=ftc,
-                                   name=name)[0]
+                y, _, a = apply_layer(p, h, kind=kind, cfg=cfg, run=run,
+                                      mode=mode, positions=positions,
+                                      ftc=ftc, name=name)
+                return y, a
             p = params["layers"][lid]
             if run.remat == "block" and torch.is_grad_enabled():
                 # the fault draws are counter-based: no RNG state to keep
-                x = checkpoint(layer, p, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(layer, p, x, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = layer(p, x)
+                x, aux = layer(p, x)
+            aux_total = aux_total + aux
             continue
-        x, new_caches[lid] = apply_layer(
+        x, new_caches[lid], aux = apply_layer(
             params["layers"][lid], x, kind=kind, cfg=cfg, run=run, mode=mode,
             cache=None if caches is None else caches[lid],
             positions=positions, ftc=ftc, name=name)
-    return x, (None if train else new_caches)
+        aux_total = aux_total + aux
+    return x, (None if train else new_caches), aux_total
 
 
 # ------------------------------------------------------------- embedding ---
 def embed_tokens(params, cfg, tokens):
     e = params["embed"][tokens]
     if cfg.scale_embeds:
-        e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype)
+        # a device fill, not a host tensor: a graphed decode step holds it
+        e = e * torch.full((), cfg.d_model ** 0.5, dtype=e.dtype,
+                           device=e.device)
     return e
 
 

@@ -34,10 +34,11 @@ loop's divide, so the two loops sample alike only at temperature 0, as in
 the reference.
 
 The scan keeps one set of static caches and one graph, for the shape of
-the last prefill's caches (the batch, and the capacity of full-attention
-layers): each generation copies its prefill's caches into them, and a new
-shape frees them and captures a new graph, so a server holds one set
-whatever the prompts it sees.  Not ported yet (ROADMAP.md): device meshes.
+the last prefill's caches (the batch, the capacity of full-attention
+layers, and the recurrent state rows of R and S layers): each generation
+copies its prefill's caches into them, and a new shape frees them and
+captures a new graph, so a server holds one set whatever the prompts it
+sees.  Not ported yet (ROADMAP.md): device meshes.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core import prng
 from repro_torch.serve.graphs import StepGraph
 
@@ -181,9 +183,8 @@ class Engine:
         caches' shapes; each emits the token it consumes, so the result is
         ``[tok0, ..., tok_{n_new-1}]``, as the reference's scan."""
         shapes = (tuple(tok.shape), tok.dtype) + tuple(
-            (lid, name, tuple(c.shape), c.dtype)
-            for lid, layer in caches.items()
-            for name, c in layer["attn"].items())
+            (name, tuple(c.shape), c.dtype)
+            for name, c in tree.items(caches))
         step = self._scan_step
         if step is None or step.shapes != shapes:
             self._scan_step = step = None    # free the old buffers first
@@ -201,22 +202,21 @@ class Engine:
 
 class _ScanStep:
     """One decode step of the scan loop over static buffers for caches of
-    ``shapes``: the caches (copied in from each prefill), the carried token and sampling key, the
-    step index ``i``, the prompt length ``pos0`` and the fault key.  Step
-    ``i`` decodes at ``pos0 + i`` under ``fold_in(ftkey, i + 1)``, folds
-    ``i`` into the sampling key and samples the next token, all on the
-    device; ``graph`` runs it (``serve.graphs.StepGraph``).  The step holds
-    its buffers and no Engine, so nothing here is a reference cycle and the
-    device memory goes with the Engine."""
+    ``shapes``: the caches, whatever the model's cache tree holds (attention
+    caches, recurrent state rows; copied in from each prefill), the carried
+    token and sampling key, the step index ``i``, the prompt length
+    ``pos0`` and the fault key.  Step ``i`` decodes at ``pos0 + i`` under
+    ``fold_in(ftkey, i + 1)``, folds ``i`` into the sampling key and
+    samples the next token, all on the device; ``graph`` runs it
+    (``serve.graphs.StepGraph``).  The step holds its buffers and no
+    Engine, so nothing here is a reference cycle and the device memory
+    goes with the Engine."""
 
     def __init__(self, model, params, caches, tok, ftc, temperature,
                  shapes):
         dev = tok.device
         self.shapes = shapes
-        self.caches = caches = {
-            lid: {"attn": {name: torch.zeros_like(c)
-                           for name, c in layer["attn"].items()}}
-            for lid, layer in caches.items()}
+        self.caches = caches = tree.tree_map(torch.zeros_like, caches)
         self.tok = tok = torch.zeros_like(tok)
         self.i, self.pos0 = i, pos0 = [
             torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
@@ -237,9 +237,7 @@ class _ScanStep:
     def load(self, caches, tok, pos0, ftkey, skey):
         """A generation's starting state: its prefill's caches, first token,
         prompt length and keys; step index 0."""
-        for lid, layer in caches.items():
-            for name, c in layer["attn"].items():
-                self.caches[lid]["attn"][name].copy_(c)
+        tree.tree_map(lambda buf, c: buf.copy_(c), self.caches, caches)
         self.tok.copy_(tok)
         self.pos0.fill_(pos0)
         self.i.zero_()

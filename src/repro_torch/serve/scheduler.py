@@ -42,9 +42,14 @@ device buffers, which each chunk loads from the host in one copy, and the
 Scheduler keeps one set of caches, zeroed at the start of every run, that
 the graph owns.  ``loop="python"`` runs the same step eagerly on any
 device.  ``SchedStats`` counts the same calls the reference counts as
-executables, in both loops.  Not ported (ROADMAP.md): ``mesh=``, the
-recurrent, encoder-decoder and vision families (the port's model raises
-for them).
+executables, in both loops.
+
+The recurrent families (R and S layers) schedule with exact-length prefill
+(``buckets=None``), as in the reference: a right-padded prompt would run
+its pads through the recurrence.  Their state lives in dense per-slot rows
+beside the attention caches under either ``kv`` layout; admission writes a
+request's rows into its slot.  Not ported (ROADMAP.md): ``mesh=``, the
+encoder-decoder and vision families (the port's model raises for them).
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core import prng
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import LOOPS, ft_ctx, sample_scaled
@@ -133,6 +139,14 @@ class Scheduler:
         exact = self.cfg.buckets is None
         if self.cfg.kv not in ("paged", "dense"):
             raise ValueError(f"unknown kv layout {self.cfg.kv!r}")
+        if (set(kinds) & {"R", "S"} or mcfg.enc_dec) and not exact:
+            raise ValueError(
+                "bucketed prefill supports attention families only: "
+                "right-padded prompts would integrate pad tokens into "
+                "recurrent/encoder state.  Recurrent (R/S) and enc-dec "
+                "models schedule with buckets=None (exact-length "
+                "prefill); their recurrent/SSM state lives in dense "
+                "per-slot rows under either kv layout")
         if (not exact and "L" in kinds
                 and max(self.cfg.buckets) > mcfg.window):
             raise ValueError(
@@ -205,23 +219,30 @@ class Scheduler:
         pool.view(P * bs, *pool.shape[2:])[fi] = rows[0, :n].to(pool.dtype)
 
     def _insert(self, caches, c1, slot, plen, bt_g, bt_l):
+        """Write a B = 1 prefill's caches into ``slot``: paged attention
+        leaves are scattered through the slot's new block table; dense
+        leaves (dense KV, the R and S layers' state rows) are slot-row
+        writes."""
         for lid, kind in zip(caches, self._kinds):
-            dst, new = caches[lid]["attn"], c1[lid]["attn"]
-            if "bt" in dst:
-                wdw = self._window if kind == "L" else 0
-                row = bt_l if wdw else bt_g
-                for name in ("k", "v"):
-                    self._scatter_pool(dst[name], new[name], row, wdw, plen)
-                dst["bt"][slot] = row
-            else:
-                for name in ("k", "v"):
-                    dst[name][slot] = new[name][0].to(dst[name].dtype)
+            for key, dst in caches[lid].items():
+                new = c1[lid][key]
+                if "bt" in dst:
+                    wdw = self._window if kind == "L" else 0
+                    row = bt_l if wdw else bt_g
+                    for name in ("k", "v"):
+                        self._scatter_pool(dst[name], new[name], row, wdw,
+                                           plen)
+                    dst["bt"][slot] = row
+                    continue
+                for name, buf in dst.items():
+                    buf[slot] = new[name][0].to(buf.dtype)
 
     def _retire(self, caches, slot):
         """Point the evicted slot's block tables back at the trash block, so
         its row, which goes on decoding, writes nowhere a request reads."""
         for c in caches.values():
-            c["attn"]["bt"][slot] = 0
+            if "bt" in c.get("attn", {}):
+                c["attn"]["bt"][slot] = 0
 
     def _chunk(self, caches, tok, pos, tstep, rids, active):
         """``decode_chunk`` decode steps of every slot; tokens, positions
@@ -289,9 +310,8 @@ class Scheduler:
                 self.cfg.max_batch, self.capacity, device=self.device,
                 paged=paged)
         else:
-            for layer in self._caches.values():
-                for c in layer["attn"].values():
-                    c.zero_()
+            for c in tree.leaves(self._caches):
+                c.zero_()
         return self._caches
 
     # ---------------------------------------------------------------- run --

@@ -26,7 +26,14 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.models.cnn, repro_torch.tree, repro_torch.optim, "
             "repro_torch.optim.adamw, repro_torch.train, "
             "repro_torch.train.train_step, repro_torch.train.checkpoint, "
-            "repro_torch.train.trainer, repro_torch.launch.train; "
+            "repro_torch.train.trainer, repro_torch.launch.train, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.rglru, "
+            "repro_torch.configs.qwen3_moe_235b_a22b, "
+            "repro_torch.configs.mamba2_2_7b, "
+            "repro_torch.configs.recurrentgemma_9b, "
+            "repro_torch.configs.qwen2_7b, repro_torch.configs.glm4_9b, "
+            "repro_torch.configs.gemma2_27b, repro_torch.configs.dbrx_132b; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
