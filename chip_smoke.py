@@ -33,8 +33,8 @@ its last line:
      launch at 1 x 4, a launch's fixed cost on the card;
   5. entry points: quant_linear and inject, the kernel-level entry points of
      qmatmul and fault_inject, at the decode shapes, equal to the CPU;
-  6. engine: full-width h2o-danube-1.8b (random bf16 weights from a seed),
-     B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4, fused backend,
+  6. engine: full-width h2o-danube-1.8b at 12 of its 24 layers
+     (SERVE_LAYERS; random bf16 weights from a seed), B=4, prompt 64, 16 new tokens under crt3 at BER 1e-4, fused backend,
      Engine(loop="python") (pinned: its counts and events are per Python
      call of the kernel, which a graph replay does not make): fused tokens
      equal reference tokens, the kernel ran once per projection of every
@@ -56,12 +56,12 @@ its last line:
      tokens;
   7b. scan on the pallas backend, as 6b (at phase 7's depth), against
      phase 7's tokens;
-  8. scheduler: the same model, all 24 layers, through the continuous-
+  8. scheduler: the same model (12 of 24 layers) through the continuous-
      batching Scheduler (4 slots, buckets 32/64, paged KV cache of 16-token
      blocks, 4 decode steps per round trip; loop="python", pinned as in 6)
      serving 8 requests of 9-64 prompt and 4-16 new tokens under crt3 at
      BER 1e-4 on the fused backend: fused_decode at prefill (B = 1, global
-     t) and at decode (per-request keys, per-row t), launched 7 x 24 times
+     t) and at decode (per-request keys, per-row t), launched 7 x 12 times
      per prefill call and per decode step, its device time by prefill and
      decode; every request's tokens equal the reference backend's; one
      request alone gives the tokens it gave in the crowd; the kernel phase
@@ -72,19 +72,23 @@ its last line:
      request's tokens equal phase 8's bitwise, and the lone request's on a
      second run of the same Scheduler; capture s, chunk-call and
      prefill-call s, tokens/s, replay ms, peak memory, a profiled replay;
-  8c. families: the MoE, Mamba2-SSD and RG-LRU families at their published
-     widths (phase_family's docstring; FAMILIES: mamba2-2.7b at all 64
-     layers, recurrentgemma-9b at all 38, qwen3-moe-235b-a22b at 4 of its
-     94 with all 128 experts), random bf16 weights from a seed, B = 4, a
-     64-token prompt, 8 new tokens, crt3 at BER 1e-4: the scan's graph
-     tokens equal the reference backend's and the eager loop's, whose
-     every fused_decode launch is held bitwise to fused_ref; the kernel
-     once per protected projection of every step; an exact-length
-     Scheduler run per family (4 slots, 6 requests of 8-48 prompt
-     tokens), fused equal to reference; prefill ms, scan decode tokens/s,
-     a replay's ms and busy share, peak memory (the kernel phase also
-     checks and times every (K, N) these models launch at M = 4 and
-     M = 256);
+  8c. families: the MoE, Mamba2-SSD, RG-LRU, encoder-decoder and
+     vision-frontend families at their published widths (phase_family's
+     docstring; FAMILIES: mamba2-2.7b at 16 of its 64, recurrentgemma-9b
+     at 14 of its 38, qwen3-moe-235b-a22b at 4 of its 94 with all 128
+     experts, seamless-m4t-medium at all 12 + 12, paligemma-3b at all
+     18), random bf16 weights from a seed, B = 4, a 64-token prompt
+     (seamless: 96 encoder frames; paligemma: 256 patch rows in front), 8
+     new tokens, crt3 at BER 1e-4: the scan's graph tokens equal the
+     reference backend's and the eager loop's, whose every fused_decode
+     launch is held bitwise to fused_ref; the kernel once per protected
+     projection of every step (and each cross-attention xk / xv once per
+     prefill; the full-width encoder, as the reference's scanned one,
+     launches none); a Scheduler run per family (4 slots, 6 requests of
+     8-48 prompt tokens; exact-length, but paligemma's bucketed at 32/64),
+     fused equal to reference; parameter counts, prefill ms, scan decode
+     tokens/s, a replay's ms and busy share, peak memory (the kernel phase
+     also checks and times every (M, K, N) these models launch);
   9. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
@@ -173,10 +177,13 @@ EDGE_SHAPES = tuple((m, k, n) for m in (1, 16, 17) for k in (31, 200, 2561)
                     for n in (130, 648))
 # (M, K, N) at which xq and wq also run 1 byte off 16-byte alignment
 MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
-# the pallas path (phases 7 and 7b) runs full width at this many of the
-# 24 layers: its eager loop is host-bound, and at full depth the script
-# took 1096.9 s of its 1200-s limit on an H100 host whose eager phases
-# ran 33% slower than on others
+# the serving phases (6-8b) run full width at this many of danube's 24
+# layers, and the pallas path (phases 7 and 7b) at PALLAS_LAYERS: their
+# eager loops are host-bound, and on an H100 host whose eager phases ran
+# 34% slower than on others the script took 1167.4 s of its 1200-s limit
+# with the serving phases at all 24 layers (and 1096.9 s with the pallas
+# path at 24)
+SERVE_LAYERS = 12
 PALLAS_LAYERS = 4
 # the kernels on the split-K tensor-core GEMM core
 CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
@@ -198,17 +205,31 @@ TRAIN = dict(seq=64, batch=4, clean_steps=2, fat_steps=2, policy="crt3",
              trainer_fat_steps=4, ckpt_every=2, cnn_steps=250,
              cnn_fat_ber=2e-3, cnn_batch=64, ste_rtol=1e-6)
 # the families phase: each architecture at its published widths, at this
-# many layers (None: all): mamba2-2.7b's 64 (5.4 GB of bf16),
-# recurrentgemma-9b's 38 (17 GB), qwen3-moe-235b-a22b at 4 of its 94 (its
-# ~470 GB cannot fit one card; all 128 experts, top-8); B = 4, a 64-token
-# prompt, 8 new tokens, crt3 at BER 1e-4 without weight faults; then 6
-# requests of 8-48 prompt tokens through an exact-length Scheduler
-FAMILIES = {"mamba2-2.7b": None, "recurrentgemma-9b": None,
-            "qwen3-moe-235b-a22b": 4}
+# many layers (None: all): mamba2-2.7b at 16 of its 64 (all 64 took ~50 s
+# more of the script's time limit), recurrentgemma-9b at 14 of its 38 (4
+# whole R,R,L periods and the R,R tail; all 38 took ~95 s more),
+# qwen3-moe-235b-a22b at 4 of its 94 (its ~470 GB cannot fit one card; all
+# 128 experts, top-8), seamless-m4t-medium's 12 encoder and 12 decoder
+# layers, paligemma-3b's 18; B = 4, a 64-token prompt, 8 new tokens, crt3
+# at BER 1e-4 without weight faults; then 6 requests of 8-48 prompt tokens
+# through a Scheduler
+FAMILIES = {"mamba2-2.7b": 16, "recurrentgemma-9b": 14,
+            "qwen3-moe-235b-a22b": 4, "seamless-m4t-medium": None,
+            "paligemma-3b": None}
 FAM = dict(batch=4, prompt=64, new=8, policy="crt3", ber=1e-4)
 FAM_SCHED = dict(max_batch=4, buckets=None, max_prompt=48,
                  max_new_tokens=8, decode_chunk=4, kv="paged", block_size=16)
 FAM_PROMPTS = (8, 16, 24, 32, 40, 48)
+# seamless's encoder input: 96 frames against the engine's 64-token prompt
+# (equal lengths would hide a swap of the two), and 16-48 frames per
+# Scheduler request, none its prompt's length and no two alike (so the
+# per-slot valid lengths cn differ); paligemma's Scheduler runs bucketed,
+# its 256 patch rows in front of right-padded prompts
+FAM_FRAMES = 96
+FAM_SCHED_FRAMES = (40, 48, 16, 24, 32, 20)
+FAM_SCHED_BUCKETS = {"paligemma-3b": (32, 64)}
+# published parameter counts (tests/test_models_smoke.py; the backbones)
+PUBLISHED_PARAMS = {"paligemma-3b": 2.5e9, "seamless-m4t-medium": 0.7e9}
 # VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
 # benchmarks/workloads.py (which imports the JAX package): (name, out_hw,
 # k, cin, cout), then the three fc layers; the first 40% are "sensitive"
@@ -306,8 +327,10 @@ def launches_per_generation():
     each decode step (M = B)."""
     per_gen = {}
     for kn in LAYER_KN:
-        per_gen[(PROMPT * B,) + kn] = per_gen.get((PROMPT * B,) + kn, 0) + 24
-        per_gen[(B,) + kn] = per_gen.get((B,) + kn, 0) + 24 * NEW
+        per_gen[(PROMPT * B,) + kn] = (per_gen.get((PROMPT * B,) + kn, 0)
+                                       + SERVE_LAYERS)
+        per_gen[(B,) + kn] = (per_gen.get((B,) + kn, 0)
+                              + SERVE_LAYERS * NEW)
     return per_gen
 
 
@@ -331,9 +354,11 @@ def family_config(arch):
 
 
 def family_kn(cfg):
-    """(K, N) of each protected projection of one forward, in call order:
-    attention wq wk wv wo; RG-LRU w_gate w_x w_out; SSD in_proj out_proj;
-    then the MoE router or the MLP's wi (wg) wo."""
+    """(K, N) of each protected projection of one decode step, in call
+    order: attention wq wk wv wo; an encoder-decoder's cross-attention wq
+    wo; RG-LRU w_gate w_x w_out; SSD in_proj out_proj; then the MoE router
+    or the MLP's wi (wg) wo.  A prefill runs them all too, and
+    ``family_cross_kn``'s."""
     from repro_torch.models.ssm import dims
     from repro_torch.models.transformer import layer_kinds
     D, out = cfg.d_model, []
@@ -341,6 +366,8 @@ def family_kn(cfg):
         if kind in ("G", "L"):
             q, kv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
             out += [(D, q), (D, kv), (D, kv), (q, D)]
+            if cfg.enc_dec:
+                out += [(D, q), (q, D)]
         elif kind == "R":
             W = cfg.rglru_width
             out += [(D, W), (D, W), (W, D)]
@@ -355,15 +382,36 @@ def family_kn(cfg):
     return out
 
 
+def family_cross_kn(cfg):
+    """(K, N) of the projections only a prefill runs: each decoder layer's
+    cross-attention keys and values (xk, xv) of an encoder-decoder, at M =
+    B x the encoder's length.  The full-width encoder launches none: the
+    reference's scanned encoder runs without a fault context."""
+    if not cfg.enc_dec:
+        return []
+    return [(cfg.d_model, cfg.n_kv_heads * cfg.d_head)] * (2 * cfg.n_layers)
+
+
+def family_prefill_len(cfg):
+    """Decoder positions of a families-phase prefill: the prompt, behind
+    the vision family's patch rows."""
+    return FAM["prompt"] + (cfg.n_frontend_tokens
+                            if cfg.frontend == "vision" else 0)
+
+
 def family_launches():
     """{(M, K, N): fused_decode launches of one families-phase generation}
-    over the three families: each projection once at prefill (M = B x
-    prompt) and once per decode step (M = B)."""
+    over the families: each projection once at prefill (M = B x the
+    prefill's positions) and once per decode step (M = B); each xk / xv
+    once at prefill (M = B x FAM_FRAMES)."""
     per_gen = collections.Counter()
     for arch in FAMILIES:
-        for kn in family_kn(family_config(arch)):
-            per_gen[(FAM["batch"] * FAM["prompt"],) + kn] += 1
+        cfg = family_config(arch)
+        for kn in family_kn(cfg):
+            per_gen[(FAM["batch"] * family_prefill_len(cfg),) + kn] += 1
             per_gen[(FAM["batch"],) + kn] += FAM["new"]
+        for kn in family_cross_kn(cfg):
+            per_gen[(FAM["batch"] * FAM_FRAMES,) + kn] += 1
     return per_gen
 
 
@@ -1585,10 +1633,25 @@ def family_workload(vocab):
             for rid, n in enumerate(FAM_PROMPTS)]
 
 
+def family_extras(torch, cfg, g, dev):
+    """Each Scheduler request's extra inputs, random bf16 from ``g``:
+    seamless's FAM_SCHED_FRAMES frames, paligemma's patch rows; None for
+    token-only families."""
+    def rows(n):
+        return torch.randn((n, cfg.d_model), generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    if cfg.enc_dec:
+        return [{"frames": rows(n)} for n in FAM_SCHED_FRAMES]
+    if cfg.frontend == "vision":
+        return [{"patch_embeds": rows(cfg.n_frontend_tokens)}
+                for _ in FAM_PROMPTS]
+    return [None] * len(FAM_PROMPTS)
+
+
 def phase_families(torch):
-    """The MoE, Mamba2-SSD and RG-LRU families at their published widths
-    (``FAMILIES``' depths): each through phase_family.  Returns
-    {arch: that family's counts and times}."""
+    """The MoE, Mamba2-SSD, RG-LRU, encoder-decoder and vision families at
+    their published widths (``FAMILIES``' depths): each through
+    phase_family.  Returns {arch: that family's counts and times}."""
     out = {}
     for arch in FAMILIES:
         out[arch] = phase_family(torch, arch)
@@ -1609,10 +1672,15 @@ def phase_family(torch, arch):
       * Engine(loop="python") on the same model: the graph's tokens, with
         fused_decode launched once per projection of the prefill and of
         every step, each launch held bitwise to fused_ref on the card;
-      * an exact-length Scheduler (4 slots, 6 requests of 8-48 prompt
-        tokens, each step a graph replay): fused tokens equal the
-        reference backend's, launches once per projection per prefill and
-        per decode step."""
+      * a Scheduler (4 slots, 6 requests of 8-48 prompt tokens, each step
+        a graph replay; exact-length prefill, but paligemma's bucketed):
+        fused tokens equal the reference backend's, launches once per
+        projection per prefill and per decode step.
+
+    An encoder-decoder's prefill also launches each decoder layer's xk and
+    xv once over its encoder input, and its encoder (scanned at full
+    width, as the reference's, which passes no fault context) none: a
+    direct run of the encoder under the policy must launch nothing."""
     from repro_torch import ft
     from repro_torch.configs import get_config, get_run_config
     from repro_torch.kernels.fused_decode import kernel
@@ -1625,6 +1693,7 @@ def phase_family(torch, arch):
     Bf, P, NEWF = FAM["batch"], FAM["prompt"], FAM["new"]
     cfg = family_config(arch)
     per_step = len(family_kn(cfg))
+    cross = len(family_cross_kn(cfg))     # a prefill's xk and xv launches
     model = build(cfg, get_run_config(arch))
     g = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
@@ -1636,8 +1705,35 @@ def phase_family(torch, arch):
     n_params = sum(t.numel() for t in leaves(params))
     batch = {"tokens": torch.randint(0, cfg.vocab, (Bf, P), generator=g,
                                      device=dev)}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((Bf, FAM_FRAMES, cfg.d_model),
+                                      generator=g, device=dev,
+                                      dtype=torch.bfloat16)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(
+            (Bf, cfg.n_frontend_tokens, cfg.d_model), generator=g,
+            device=dev, dtype=torch.bfloat16)
     policy = ft.get_policy(FAM["policy"], ber=FAM["ber"],
                            weight_faults=False)
+    encoder_launches = None
+    if cfg.enc_dec:
+        # the full-width encoder under the policy: clean, no launch
+        from repro_torch.core import prng
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import FTCtx
+        n0 = kernel.fused_decode.launches
+        with torch.no_grad():
+            enc = T.encode(params, batch["frames"], cfg=cfg, run=model.run,
+                           ftc=FTCtx(policy, prng.PRNGKey(0, device=dev),
+                                     backend="fused"))
+        torch.cuda.synchronize()
+        encoder_launches = kernel.fused_decode.launches - n0
+        if encoder_launches or not bool(torch.isfinite(enc).all()):
+            raise AssertionError(f"{arch}: the full-width encoder launched "
+                                 f"fused_decode {encoder_launches} times "
+                                 "(expected none) or gave non-finite "
+                                 "values")
+        del enc
     scfg = ServeConfig(max_new_tokens=NEWF)
 
     # -- the scan: graph replays, against the reference backend's scan --
@@ -1651,13 +1747,14 @@ def phase_family(torch, arch):
     python_calls = kernel.fused_decode.launches  # ... and ends here
     step = engine._scan_step
     graph = step.graph
-    if python_calls != 3 * per_step:
+    if python_calls != 3 * per_step + cross:
         raise AssertionError(f"{arch}: fused_decode's wrapper was called "
                              f"{python_calls} times, expected "
-                             f"{3 * per_step} (the prefill, the warm-up "
-                             "step and the capture)")
+                             f"{3 * per_step + cross} (the prefill, the "
+                             "warm-up step and the capture)")
     launches = _graph_launches(graph, python_calls, "fused_decode", per_step)
-    if launches != per_step * (1 + NEWF) or graph.replays != NEWF - 1:
+    if (launches != per_step * (1 + NEWF) + cross
+            or graph.replays != NEWF - 1):
         raise AssertionError(f"{arch}: fused_decode launched {launches} "
                              f"times in {graph.replays} replays")
     if toks.shape != (Bf, NEWF) or not bool(((toks >= 0)
@@ -1711,11 +1808,12 @@ def phase_family(torch, arch):
         fops.fused_decode = real
     eager_s = time.perf_counter() - t0
     eager_launches = kernel.fused_decode.launches
-    if eager_launches != per_step * (1 + NEWF) or sum(
+    if eager_launches != per_step * (1 + NEWF) + cross or sum(
             seen.values()) != eager_launches:
         raise AssertionError(f"{arch}: the eager loop launched fused_decode "
                              f"{eager_launches} times ({sum(seen.values())} "
-                             f"checked), expected {per_step * (1 + NEWF)}")
+                             "checked), expected "
+                             f"{per_step * (1 + NEWF) + cross}")
     if not torch.equal(eager_toks, toks):
         raise AssertionError(f"{arch}: graph tokens differ from the eager "
                              f"loop's:\n{toks.cpu()}\n{eager_toks.cpu()}")
@@ -1724,15 +1822,21 @@ def phase_family(torch, arch):
     emit({"phase": "families", "step": "engine", "arch": arch,
           "family": cfg.family, "layers": cfg.n_layers,
           "published_layers": get_config(arch).n_layers,
-          "params": n_params, "param_dtype": "bfloat16",
+          "encoder_layers": cfg.n_enc_layers,
+          "params": n_params, "published_params": PUBLISHED_PARAMS.get(arch),
+          "param_dtype": "bfloat16",
           "init_s": init_s, "batch": Bf, "prompt": P, "new_tokens": NEWF,
+          "frames": FAM_FRAMES if cfg.enc_dec else None,
+          "patch_rows": cfg.n_frontend_tokens or None,
           "policy": FAM["policy"], "ber": FAM["ber"],
           "prefill_ms": timer.ms, "decode_tokens_per_s": tps,
           "generate_s": generate_s, "replay_generate_s": replay_generate_s,
           "reference_generate_s": ref_s, "capture_s": capture_s,
           "replay_wall_ms": wall_ms, "replay_event_ms": event_ms,
           "device_busy_share": prof["device_busy_share"],
-          "launches_per_step": per_step, "launches": launches,
+          "launches_per_step": per_step,
+          "prefill_launches": per_step + cross,
+          "encoder_launches": encoder_launches, "launches": launches,
           "eager_generate_s": eager_s, "eager_launches": eager_launches,
           "checked_launches": sum(seen.values()),
           "checked_shapes": len(seen),
@@ -1742,15 +1846,19 @@ def phase_family(torch, arch):
     emit({"phase": "profile", "backend": "fused", "step":
           f"{arch}_scan_replay", **prof})
 
-    # -- the exact-length Scheduler, fused against reference --
+    # -- the Scheduler, fused against reference --
     spec = family_workload(cfg.vocab)
+    extras = family_extras(torch, cfg, g, dev)
+    sc = dict(FAM_SCHED)
+    if arch in FAM_SCHED_BUCKETS:
+        sc.update(buckets=FAM_SCHED_BUCKETS[arch], max_prompt=None)
 
     def requests():
-        return [Request(rid=r, tokens=list(t), max_new_tokens=k)
-                for r, t, k in spec]
+        return [Request(rid=r, tokens=list(t), max_new_tokens=k, extras=e)
+                for (r, t, k), e in zip(spec, extras)]
     outs, walls, stats = {}, {}, {}
     for backend in ("fused", "reference"):
-        sched = Scheduler(model, params, SchedulerConfig(**FAM_SCHED),
+        sched = Scheduler(model, params, SchedulerConfig(**sc),
                           policy=policy, ft_backend=backend, loop="scan")
         kernel.fused_decode.launches = 0    # the path's run starts here
         t0 = time.perf_counter()
@@ -1761,14 +1869,15 @@ def phase_family(torch, arch):
         st = sched.stats
         if backend == "fused":
             sgraph = sched._step.graph
-            if calls != per_step * (st.prefill_calls + 2):
+            want = (per_step + cross) * st.prefill_calls + 2 * per_step
+            if calls != want:
                 raise AssertionError(
                     f"{arch}: the Scheduler called fused_decode {calls} "
-                    f"times, expected {per_step * (st.prefill_calls + 2)}")
+                    f"times, expected {want}")
             s_launches = _graph_launches(sgraph, calls, "fused_decode",
                                          per_step)
-            want = per_step * (st.prefill_calls + FAM_SCHED["decode_chunk"]
-                               * st.chunk_calls)
+            want = ((per_step + cross) * st.prefill_calls
+                    + per_step * sc["decode_chunk"] * st.chunk_calls)
             if s_launches != want:
                 raise AssertionError(f"{arch}: the Scheduler launched "
                                      f"fused_decode {s_launches} times, "
@@ -1790,8 +1899,10 @@ def phase_family(torch, arch):
     tokens = sum(len(t) for t in outs["fused"].values())
     st = stats["fused"]
     emit({"phase": "families", "step": "scheduler", "arch": arch,
-          "layers": cfg.n_layers, "config": FAM_SCHED,
-          "prompt_lens": list(FAM_PROMPTS), "tokens": tokens,
+          "layers": cfg.n_layers, "config": sc,
+          "prompt_lens": list(FAM_PROMPTS),
+          "frames": list(FAM_SCHED_FRAMES) if cfg.enc_dec else None,
+          "patch_rows": cfg.n_frontend_tokens or None, "tokens": tokens,
           "wall_s": walls["fused"], "tokens_per_s": tokens / walls["fused"],
           "reference_wall_s": walls["reference"],
           "prefill_calls": st.prefill_calls, "chunk_calls": st.chunk_calls,
@@ -1801,6 +1912,7 @@ def phase_family(torch, arch):
     del model, params, sgraph
     torch.cuda.empty_cache()
     return dict(launches=launches, per_step=per_step,
+                prefill_launches=per_step + cross,
                 scheduler_launches=s_launches,
                 checked_launches=sum(seen.values()),
                 decode_tokens_per_s=tps, prefill_ms=timer.ms)
@@ -2705,7 +2817,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
-    gen = (f"one generation (B={B}, prompt {PROMPT}, {NEW} new): ms from "
+    gen = (f"one generation (B={B}, prompt {PROMPT}, {NEW} new; danube at "
+           f"{SERVE_LAYERS} of its 24 layers): ms from "
            "CUDA events around each launch of the path's run; plain_ms, "
            "bound_ms, library_ms and kernel_phase_ms from the kernel "
            "phase's per-shape times x launches; bound_share = bound_ms / "
@@ -2716,7 +2829,7 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                 max_abs_err=err, ms=ms,
                 **_totals(rows, lambda r: r["launches_per_generation"]),
                 per=gen + ", fused backend", **common)]
-    n_layers = 24
+    n_layers = SERVE_LAYERS
     n_prefill = collections.Counter(sched["buckets"])
     kn_count = collections.Counter(LAYER_KN)
 
@@ -2780,6 +2893,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
         families_launches=sum(f["launches"] for f in fam.values()),
         families_launches_per_step={a: f["per_step"]
                                     for a, f in fam.items()},
+        families_prefill_launches={a: f["prefill_launches"]
+                                   for a, f in fam.items()},
         families_checked_launches=sum(f["checked_launches"]
                                       for f in fam.values()),
         families_scheduler_launches=sum(f["scheduler_launches"]
@@ -2787,7 +2902,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
         **{f"families_{k}": v for k, v in tot.items()},
         families_per=(f"the families phase's scan generations (B="
                       f"{FAM['batch']}, prompt {FAM['prompt']}, "
-                      f"{FAM['new']} new; "
+                      f"{FAM['new']} new; seamless with {FAM_FRAMES} "
+                      "encoder frames, paligemma with its patch rows; "
                       + ", ".join(f"{a} at {family_config(a).n_layers} "
                                   "layers" for a in FAMILIES)
                       + "): launches from the graphs' counts; plain, bound, "
@@ -2800,7 +2916,7 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
         max_abs_err=dla_err["protected_mm"], ms=ms,
         **_totals(dla["protected_mm"],
                   lambda r: r["launches_per_generation"] * PALLAS_LAYERS
-                  // 24),
+                  // SERVE_LAYERS),
         library="torch._int_mm, the GEMM part",
         per=gen + f", pallas backend, {PALLAS_LAYERS} of the 24 layers",
         **common))
@@ -2850,7 +2966,7 @@ def main() -> int:
     rows, sched_rows, conv_rows, fam_rows, max_err = run(phase_kernels)
     dla, dla_err = run(phase_dla_kernels)
     entry, entry_bound = run(phase_entry_points)
-    m = run(full_model)
+    m = run(full_model, SERVE_LAYERS)
     fused = run(phase_engine, m)
     run(phase_scan, m, "fused", fused)
     mp = full_model(torch, PALLAS_LAYERS)

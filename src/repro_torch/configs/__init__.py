@@ -1,9 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
-Counterpart of ``repro.configs``.  The port registers every architecture
-whose layers it has; paligemma-3b and seamless-m4t-medium need the vision
-frontend and the encoder-decoder stack, which are not ported yet
-(ROADMAP.md, queue A item 4), and ``get_config`` says so.
+Counterpart of ``repro.configs``: the port registers every architecture
+the reference does.
 """
 from __future__ import annotations
 
@@ -19,25 +17,16 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "dbrx-132b": "dbrx_132b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "paligemma-3b": "paligemma_3b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
-}
-
-# the reference's architectures whose families the port has yet to serve
-_NOT_PORTED = {
-    "paligemma-3b": "its vision frontend (queue A item 4.5)",
-    "seamless-m4t-medium": "its encoder-decoder stack and cross-attention "
-                           "(queue A item 4.4)",
 }
 
 ARCHS = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it needs {_NOT_PORTED[arch]} "
-            "(ROADMAP.md)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port knows "
                        f"{list(_MODULES)}")

@@ -13,7 +13,10 @@ Every leaf crosses as it is, whatever the layer's family: the MoE's expert
 stacks ``(E, d_in, d_out)`` and float32 router, the SSM's ``A_log``, ``D``,
 ``dt_bias``, ``conv_w`` and ``norm``, the RG-LRU's block-diagonal
 ``(heads, bw, bw)`` gates and ``lam``; a config's tail is its own segment
-(recurrentgemma's ``seg1`` of R layers).  The port keeps one dict per layer
+(recurrentgemma's ``seg1`` of R layers), and an encoder-decoder's decoder
+layers carry their ``lnx`` and ``xattn``.  Its encoder comes across from
+``enc_layers/l{i}`` (unrolled) or ``enc_blocks/s0`` (scanned, stacked
+along axis 0), with ``enc_norm``.  The port keeps one dict per layer
 either way; which site names key the
 fault draws follows ``cfg.unroll`` (``repro_torch.models.transformer``).
 
@@ -48,10 +51,23 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stack, r, dev):
+    """Block ``r`` of a scanned, axis-0-stacked subtree."""
+    return _map(stack, lambda a: _tensor(np.asarray(a)[r], dev))
+
+
 def params_from_jax(tree, cfg, device=None) -> dict:
     dev = _device.resolve(device)
     out = {k: _tensor(tree[k], dev) for k in ("embed", "final_norm",
-                                              "unembed") if k in tree}
+                                              "unembed", "enc_norm")
+           if k in tree}
+    if "enc_layers" in tree:
+        out["enc_layers"] = _map(tree["enc_layers"],
+                                 lambda a: _tensor(a, dev))
+    elif "enc_blocks" in tree:
+        out["enc_layers"] = {
+            f"l{i}": _unstack(tree["enc_blocks"]["s0"], i, dev)
+            for i in range(cfg.n_enc_layers)}
     if "layers" in tree:
         out["layers"] = _map(tree["layers"], lambda a: _tensor(a, dev))
         return out
@@ -60,9 +76,7 @@ def params_from_jax(tree, cfg, device=None) -> dict:
         seg = tree[f"seg{si}"]
         for r in range(n_rep):
             for j in range(len(pattern)):
-                layers[f"l{i}"] = _map(seg[f"s{j}"],
-                                       lambda a: _tensor(np.asarray(a)[r],
-                                                         dev))
+                layers[f"l{i}"] = _unstack(seg[f"s{j}"], r, dev)
                 i += 1
     out["layers"] = layers
     return out

@@ -55,11 +55,17 @@ def lm_batch(cfg: DataConfig, vocab: int, batch: int, seq: int, step: int,
 
 def make_batch(model_cfg, shape, step: int, data_cfg: DataConfig | None = None,
                process_index: int = 0, process_count: int = 1, device=None):
-    """The batch dict of a (ModelConfig, ShapeConfig) cell: ``{"tokens"}``
-    (the vision and audio frontends' inputs come with their families)."""
+    """The batch dict of a (ModelConfig, ShapeConfig) cell: ``{"tokens"}``.
+    The vision and encoder-decoder families' training inputs are not
+    ported yet: the reference draws their ``patch_embeds`` and ``frames``
+    with ``jax.random.normal`` in bfloat16, which is not the float32 draw
+    cast to bfloat16, and the port's ``prng.normal`` has no bfloat16 path
+    (ROADMAP.md, queue A)."""
     if model_cfg.frontend or model_cfg.enc_dec:
-        raise NotImplementedError(f"{model_cfg.frontend or 'encoder'} "
-                                  "inputs are not ported yet")
+        raise NotImplementedError(
+            f"{model_cfg.frontend or 'encoder'} training inputs need a "
+            "bfloat16 prng.normal to match the reference's draws "
+            "(ROADMAP.md, queue A)")
     d = data_cfg or DataConfig()
     return {"tokens": lm_batch(d, model_cfg.vocab, shape.global_batch,
                                shape.seq_len, step, process_index,

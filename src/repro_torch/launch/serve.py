@@ -8,7 +8,10 @@
 Counterpart of ``repro.launch.serve`` (no mesh) on the fused backend.
 ``--arch`` takes any architecture the port registers
 (``repro_torch.configs.ARCHS``): the dense decoders, the MoE models
-(qwen3-moe-235b-a22b, dbrx-132b), mamba2-2.7b and recurrentgemma-9b.
+(qwen3-moe-235b-a22b, dbrx-132b), mamba2-2.7b, recurrentgemma-9b,
+paligemma-3b (fed zero ``patch_embeds``) and seamless-m4t-medium (fed zero
+``frames`` of the prompt's length), as the reference's launcher feeds
+them.
 ``--loop scan`` (the default, as the reference's) replays each decode step
 as a CUDA graph on the card; ``--loop python`` runs one step per host
 round trip.  The weights and prompts are random, from fixed seeds;
@@ -64,8 +67,17 @@ def main(argv=None):
                     policy=policy, ft_backend="fused")
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.zeros(
+            (args.batch, cfg.n_frontend_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=dev)
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros(
+            (args.batch, args.prompt_len, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
     t0 = time.perf_counter()
-    out = engine.generate({"tokens": tokens})
+    out = engine.generate(batch)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

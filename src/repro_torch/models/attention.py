@@ -11,6 +11,14 @@ cache layout: the dense one (a row of slots per batch row) and the paged
 one of the continuous-batching scheduler (``init_paged_cache``: a shared
 block pool addressed through a per-row block table).
 
+Cross-attention (``apply(enc_kv=(k, v))``, the encoder-decoder family):
+the queries get no RoPE, the keys and values are the encoder's, prefill
+attends to all of them (``causal=False``) and decode reads them from the
+layer's ``cross`` cache, each row up to its valid length ``cn`` where the
+cache has one (the Scheduler's slots) and the whole buffer otherwise.  The
+encoder's own layers (kind "E") attend as the reference's do: causally,
+with RoPE (``causal = not cross``).
+
 The decode step writes the new token into the cache in place (the reference
 donates its cache buffers, so it too reuses them); callers hand the caches
 on and do not read the old ones.
@@ -42,14 +50,17 @@ def _scale(cfg) -> float:
     return cfg.attn_scale or cfg.d_head ** -0.5
 
 
-def _mask(q_pos, k_pos, window):
-    m = q_pos[:, None] >= k_pos[None, :]
+def _mask(q_pos, k_pos, window, causal=True):
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
     if window:
         m &= q_pos[:, None] - k_pos[None, :] < window
     return m
 
 
-def _single_block(q, k, v, *, window, cap):
+def _single_block(q, k, v, *, causal, window, cap):
     """Full scores for short sequences.  q: (B, S, KH, G, Dh)."""
     S, T = q.shape[1], k.shape[1]
     s = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
@@ -57,22 +68,24 @@ def _single_block(q, k, v, *, window, cap):
     s = softcap(s, cap)
     dev = q.device
     m = _mask(torch.arange(S, device=dev), torch.arange(T, device=dev),
-              window)
+              window, causal)
     s = torch.where(m, s, torch.full((), NEG, device=dev))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
 
 
-def chunked_attention(q, k, v, *, window=0, cap=0.0, block=512):
-    """Causal attention.  q: (B, S, H, Dh); k, v: (B, T, KH, Dh) ->
-    (B, S, H, Dh); q pre-scaled.
+def chunked_attention(q, k, v, *, causal=True, window=0, cap=0.0,
+                      block=512):
+    """q: (B, S, H, Dh); k, v: (B, T, KH, Dh) -> (B, S, H, Dh); q
+    pre-scaled.  Causal (query i sees keys j <= i) unless ``causal=False``,
+    cross-attention's full view of T keys, where S and T may differ.
     kv blocks outside the causal window are skipped (O(S*W) for SWA)."""
     B, S, H, Dh = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
     q = q.reshape(B, S, KH, G, Dh)
     if S <= block and T <= block:
-        o = _single_block(q, k, v, window=window, cap=cap)
+        o = _single_block(q, k, v, causal=causal, window=window, cap=cap)
         return o.reshape(B, S, H, Dh).to(v.dtype)
 
     if S % block or T % block:
@@ -89,14 +102,14 @@ def chunked_attention(q, k, v, *, window=0, cap=0.0, block=512):
         acc = torch.zeros((B, KH, G, block, Dh), device=dev)
         m = torch.full((B, KH, G, block), NEG, device=dev)
         den = torch.zeros((B, KH, G, block), device=dev)
-        hi = min(i + 1, nk)
+        hi = min(i + 1, nk) if causal else nk
         lo = max(i + 1 - w_blocks, 0) if window else 0
         for j in range(lo, hi):
             kj = k[:, j * block:(j + 1) * block].to(torch.float32)
             vj = v[:, j * block:(j + 1) * block].to(torch.float32)
             s = torch.einsum("bqkgd,bvkd->bkgqv", qi, kj)
             s = softcap(s, cap)
-            msk = _mask(i * block + ar, j * block + ar, window)
+            msk = _mask(i * block + ar, j * block + ar, window, causal)
             s = torch.where(msk, s, neg)
             mj = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - mj[..., None])
@@ -112,25 +125,39 @@ def chunked_attention(q, k, v, *, window=0, cap=0.0, block=512):
 
 
 def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
-          cache=None, mode="prefill"):
+          cache=None, mode="prefill", enc_kv=None):
     """Attention sub-layer; modes "train" (no cache), "prefill" (builds the
-    cache) and "decode" (one token).  Returns (out, new_cache)."""
+    cache) and "decode" (one token).  ``enc_kv``: the encoder's (k, v) for
+    cross-attention, whose decode reads the ``cross`` cache ``{"ck", "cv"}``
+    (and ``"cn"``, per-row valid lengths, where present) and whose prefill
+    builds no cache.  Returns (out, new_cache)."""
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     window = cfg.window if kind == "L" else 0
+    cross = enc_kv is not None
 
     q = linear(x, p["wq"], p.get("bq"), ftc=ftc, name=f"{name}/wq")
     q = q.reshape(*x.shape[:-1], H, Dh)
-    k = linear(x, p["wk"], p.get("bk"), ftc=ftc, name=f"{name}/wk")
-    v = linear(x, p["wv"], p.get("bv"), ftc=ftc, name=f"{name}/wv")
-    k = k.reshape(*x.shape[:-1], KH, Dh)
-    v = v.reshape(*x.shape[:-1], KH, Dh)
-    k = rope(k, positions, cfg.rope_theta)
-    q = rope(q, positions, cfg.rope_theta)
+    if cross:
+        k, v = enc_kv
+    else:
+        k = linear(x, p["wk"], p.get("bk"), ftc=ftc, name=f"{name}/wk")
+        v = linear(x, p["wv"], p.get("bv"), ftc=ftc, name=f"{name}/wv")
+        k = k.reshape(*x.shape[:-1], KH, Dh)
+        v = v.reshape(*x.shape[:-1], KH, Dh)
+        k = rope(k, positions, cfg.rope_theta)
+        q = rope(q, positions, cfg.rope_theta)
     q = (q * _scale(cfg)).to(x.dtype)
 
-    if mode == "decode" and "bt" in cache:
+    new_cache = None
+    if mode == "decode" and cross:
+        ck, cv = cache["ck"], cache["cv"]
+        n_valid = cache.get("cn")
+        if n_valid is None:              # the whole buffer, a device fill
+            n_valid = torch.full((), ck.shape[1], device=x.device)
+        o = _decode_attn(q, ck, cv, n_valid, cap=cfg.attn_softcap)
+    elif mode == "decode" and "bt" in cache:
         # paged: the row's logical slot maps through its block table to a
         # physical row of the shared pool.  Rows whose table points at the
         # trash block 0 (idle or evicted slots) write where nobody reads.
@@ -165,9 +192,10 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
         n_valid = torch.clamp(pos + 1, max=cap_len)
         o = _decode_attn(q, kc, vc, n_valid, cap=cfg.attn_softcap)
     else:
-        o = chunked_attention(q, k, v, window=window,
+        o = chunked_attention(q, k, v, causal=not cross, window=window,
                               cap=cfg.attn_softcap, block=run.attn_block)
-        new_cache = _build_cache(k, v, window) if mode == "prefill" else None
+        if mode == "prefill" and not cross:
+            new_cache = _build_cache(k, v, window)
     y = linear(o.reshape(*x.shape[:-1], H * Dh), p["wo"], ftc=ftc,
                name=f"{name}/wo")
     return y, new_cache
@@ -175,7 +203,8 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
 
 def _decode_attn(q, kc, vc, n_valid, cap=0.0):
     """One-token attention over a cache.  q: (B, 1, H, Dh), kc: (B, C, KH,
-    Dh); n_valid: per-row (B,) count of populated cache slots."""
+    Dh); n_valid: per-row (B,) count of populated cache slots, or one count
+    (a 0-d tensor) for every row."""
     B, _, H, Dh = q.shape
     KH = kc.shape[2]
     G = H // KH

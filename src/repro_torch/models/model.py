@@ -30,15 +30,19 @@ class Model:
     def loss(self, params, batch, ftc=None):
         """Mean next-token cross-entropy of ``batch`` under ``ftc`` (None:
         the clean forward, or the ``run.ft_emu`` cost emulation where it is
-        set).  Returns (loss, {"nll", "aux"}); the dense family has no
-        auxiliary loss, so ``aux`` is 0."""
+        set).  An encoder-decoder encodes its ``frames`` first; the vision
+        family's loss leaves out the patch positions (labels -1).  Returns
+        (loss, {"nll", "aux"}); aux is the MoE's load-balance term (0
+        for other families)."""
         cfg, run = self.cfg, self.run
         if ftc is None and run.ft_emu:
             from repro_torch.models.common import EmuCtx
             ftc = EmuCtx(run.ft_emu, run.ft_s_th)
-        x, labels, mask = T.assemble_inputs(params, cfg, batch)
+        x, labels, mask, enc_out = T.assemble_inputs(params, cfg, batch)
+        if cfg.enc_dec:
+            enc_out = T.encode(params, enc_out, cfg=cfg, run=run, ftc=ftc)
         h, _, aux = T.backbone(params, x, cfg=cfg, run=run, mode="train",
-                               ftc=ftc)
+                               ftc=ftc, enc_out=enc_out)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         nll = T.chunked_xent(params, cfg, run, h, labels, mask)
         return nll + aux, {"nll": nll, "aux": aux}
@@ -49,11 +53,15 @@ class Model:
         decode room in full-attention caches; rolling (window) caches and
         recurrent state keep their fixed sizes.  ``last_index`` (B,) takes
         each row's logits at its last real token of a right-padded prompt.
+        An encoder-decoder's prompt runs its ``frames`` through the encoder
+        first; its ``cross`` caches keep the encoder's length.
         Returns (caches, last_token_logits)."""
         cfg, run = self.cfg, self.run
-        x, _, _ = T.assemble_inputs(params, cfg, batch)
+        x, _, _, enc_out = T.assemble_inputs(params, cfg, batch)
+        if cfg.enc_dec:
+            enc_out = T.encode(params, enc_out, cfg=cfg, run=run, ftc=ftc)
         h, caches, _ = T.backbone(params, x, cfg=cfg, run=run,
-                                  mode="prefill", ftc=ftc)
+                                  mode="prefill", ftc=ftc, enc_out=enc_out)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         if max_len is not None:
             S = x.shape[1]
@@ -84,7 +92,7 @@ class Model:
         return new_caches, T.last_logits(params, cfg, h)
 
     def init_cache(self, batch: int, seq_len: int, device=None, *,
-                   paged=None):
+                   paged=None, enc_len: int | None = None):
         """Zero caches for decoding at context length ``seq_len``, one
         ``l{i}`` entry per layer whatever the config (the reference stacks
         scanned segments).  ``paged=(block_size, n_blocks)`` gives every
@@ -92,10 +100,22 @@ class Model:
         the R and S layers' state stays in dense per-slot rows under either
         layout: ``{"rglru": {"h", "conv"}}`` and ``{"ssd": {"state",
         "conv"}}``, the recurrent state in float32 and the conv history in
-        the compute dtype."""
+        the compute dtype.  An encoder-decoder's attention layers also get
+        dense per-slot ``{"cross": {"ck", "cv"}}`` rows of ``enc_len``
+        (default ``seq_len``) encoder positions; passing ``enc_len`` adds
+        the per-row int32 valid length ``cn`` (the Scheduler's layout, where
+        slots hold encoder contexts of different lengths)."""
         cfg = self.cfg
         dev = _device.resolve(device)
         dtype = dtype_of(self.run.compute_dtype)
+        e_len = enc_len if enc_len is not None else seq_len
+
+        def cross():
+            shp = (batch, e_len, cfg.n_kv_heads, cfg.d_head)
+            c = {"ck": zeros(shp), "cv": zeros(shp)}
+            if enc_len is not None:
+                c["cn"] = zeros((batch,), torch.int32)
+            return c
 
         def zeros(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=dev)
@@ -115,10 +135,14 @@ class Model:
                     "conv": zeros((batch, s.conv_width - 1,
                                    d_inner + 2 * s.d_state))}}
             if paged is None:
-                return {"attn": attention.init_cache(cfg, kind, batch,
-                                                     seq_len, dtype, dev)}
-            return {"attn": attention.init_paged_cache(
-                cfg, kind, batch, seq_len, *paged, dtype, dev)}
+                c = {"attn": attention.init_cache(cfg, kind, batch, seq_len,
+                                                  dtype, dev)}
+            else:
+                c = {"attn": attention.init_paged_cache(
+                    cfg, kind, batch, seq_len, *paged, dtype, dev)}
+            if cfg.enc_dec:
+                c["cross"] = cross()
+            return c
         return {f"l{i}": layer(kind)
                 for i, kind in enumerate(T.layer_kinds(cfg))}
 

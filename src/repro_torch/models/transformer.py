@@ -1,12 +1,18 @@
-"""Decoder LM assembly over heterogeneous layers.
+"""Decoder LM and encoder-decoder assembly over heterogeneous layers.
 
-Counterpart of ``repro.models.transformer`` for the decoder families: G
-global and L local attention, R RG-LRU and S Mamba2 SSD mixers, with a
-dense (G)LU or an MoE feed-forward block.  Layers are kept as one dict per
-layer (``layers/l{i}``) whatever the config; the reference's layer *names*,
-which key every fault draw, follow its layout: ``l{i}`` for unrolled
-configs and ``sb{si}/s{j}`` for scanned ones, where the scan body is traced
-once, so every layer of a segment shares its site names and fault keys.
+Counterpart of ``repro.models.transformer``: G global and L local
+attention, R RG-LRU and S Mamba2 SSD mixers, with a dense (G)LU or an MoE
+feed-forward block; the encoder-decoder family's encoder stack (kind E)
+and its decoder layers' cross-attention block; the vision family's patch
+embeddings in front of the tokens.  Layers are kept as one dict per layer
+(``layers/l{i}``, ``enc_layers/l{i}``) whatever the config; the
+reference's layer *names*, which key every fault draw, follow its layout:
+``l{i}`` and ``enc{i}`` for unrolled configs and ``sb{si}/s{j}`` for
+scanned ones, where the scan body is traced once, so every layer of a
+segment shares its site names and fault keys.  The reference's scanned
+encoder passes no fault context at all: at full width (``unroll=False``)
+the encoder is clean float math and only the decoder's projections are
+protected.
 """
 from __future__ import annotations
 
@@ -14,11 +20,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp, moe, rglru, ssm
-from repro_torch.models.common import dtype_of, embed_init, rms_norm, softcap
+from repro_torch.models.common import (dtype_of, embed_init, linear,
+                                       rms_norm, softcap)
 
 # the mixer of each layer kind, and its key in the layer's params and cache
 MIXERS = {"G": (attention, "attn"), "L": (attention, "attn"),
-          "R": (rglru, "rglru"), "S": (ssm, "ssd")}
+          "E": (attention, "attn"), "R": (rglru, "rglru"), "S": (ssm, "ssd")}
 
 
 def layer_kinds(cfg):
@@ -40,17 +47,19 @@ def _check_kind(kind):
 
 
 # ------------------------------------------------------------------ init ---
-def init_layer(generator, cfg, kind, dtype, device):
+def init_layer(generator, cfg, kind, dtype, device, cross=False):
+    """One layer's parameters; ``cross`` adds the cross-attention block
+    (``lnx``, ``xattn``) of an encoder-decoder's decoder layer."""
     _check_kind(kind)
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder layers are not ported "
-                                  "yet (ROADMAP.md, queue A item 4.4)")
     D = cfg.d_model
     mixer, key = MIXERS[kind]
     p = {"ln1": torch.zeros((D,), device=device),
          key: mixer.init(generator, cfg, dtype, device)}
     if cfg.post_norm:
         p["ln1_post"] = torch.zeros((D,), device=device)
+    if cross:
+        p["lnx"] = torch.zeros((D,), device=device)
+        p["xattn"] = attention.init(generator, cfg, dtype, device)
     if cfg.d_ff > 0 or cfg.moe is not None:
         p["ln2"] = torch.zeros((D,), device=device)
         p["ffn"] = (moe.init(generator, cfg, dtype, device)
@@ -70,17 +79,26 @@ def init_params(generator, cfg, run, device):
         params["unembed"] = embed_init(generator, cfg.vocab, cfg.d_model,
                                        dtype, device)
     params["layers"] = {
-        f"l{i}": init_layer(generator, cfg, kind, dtype, device)
+        f"l{i}": init_layer(generator, cfg, kind, dtype, device,
+                            cross=cfg.enc_dec)
         for i, kind in enumerate(layer_kinds(cfg))}
+    if cfg.enc_dec:
+        params["enc_layers"] = {
+            f"l{i}": init_layer(generator, cfg, "E", dtype, device)
+            for i in range(cfg.n_enc_layers)}
+        params["enc_norm"] = torch.zeros((cfg.d_model,), device=device)
     return params
 
 
 # ----------------------------------------------------------------- layer ---
 def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
-                ftc=None, name="blk"):
+                ftc=None, name="blk", enc_out=None):
     """One residual layer.  Returns (x, new_cache, aux_loss): the cache is
-    ``{"attn": ...}``, ``{"rglru": ...}`` or ``{"ssd": ...}`` by kind, and
-    the aux loss is the MoE block's load-balance term (0 without one)."""
+    ``{"attn": ...}``, ``{"rglru": ...}`` or ``{"ssd": ...}`` by kind, with
+    a decoder layer's ``{"cross": {"ck", "cv"[, "cn"]}}`` beside it, and the
+    aux loss is the MoE block's load-balance term (0 without one).  A
+    cross-attention block takes its keys and values from ``enc_out``
+    (prefill, train) or from the ``cross`` cache (decode)."""
     _check_kind(kind)
     mixer, key = MIXERS[kind]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -91,6 +109,20 @@ def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
     if cfg.post_norm:
         m = rms_norm(m, p["ln1_post"], cfg.norm_eps)
     x = x + m
+    new_cache = {key: c}
+    ek = None if cache is None else cache.get("cross")
+    if "xattn" in p and (enc_out is not None or ek is not None):
+        h = rms_norm(x, p["lnx"], cfg.norm_eps)
+        if ek is None:
+            ek = dict(zip(("ck", "cv"), _cross_kv(p["xattn"], enc_out, cfg,
+                                                  ftc, name)))
+        m, _ = attention.apply(p["xattn"], h, cfg=cfg, run=run, kind="G",
+                               positions=positions, ftc=ftc,
+                               name=f"{name}/xattn", mode=mode,
+                               cache=ek if mode == "decode" else None,
+                               enc_kv=(ek["ck"], ek["cv"]))
+        new_cache["cross"] = ek
+        x = x + m
     aux = torch.zeros((), device=x.device)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -101,12 +133,22 @@ def apply_layer(p, x, *, kind, cfg, run, mode, cache=None, positions=None,
         if cfg.post_norm:
             f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
         x = x + f
-    return x, {key: c}, aux
+    return x, new_cache, aux
+
+
+def _cross_kv(pa, enc_out, cfg, ftc, name):
+    """The encoder's keys and values for one decoder layer: sites
+    ``{name}/xk`` and ``{name}/xv``, at M = B x the encoder's length."""
+    KH, Dh = cfg.n_kv_heads, cfg.d_head
+    k = linear(enc_out, pa["wk"], pa.get("bk"), ftc=ftc, name=f"{name}/xk")
+    v = linear(enc_out, pa["wv"], pa.get("bv"), ftc=ftc, name=f"{name}/xv")
+    return (k.reshape(*enc_out.shape[:-1], KH, Dh),
+            v.reshape(*enc_out.shape[:-1], KH, Dh))
 
 
 # -------------------------------------------------------------- backbone ---
 def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
-             ftc=None):
+             ftc=None, enc_out=None):
     """Apply all layers.  Returns (hidden, new_caches, aux_loss_sum); no
     caches in mode "train", where ``run.remat == "block"`` recomputes each
     layer in the backward pass instead of keeping its activations
@@ -125,7 +167,7 @@ def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
             def layer(p, h, kind=kind, name=name):
                 y, _, a = apply_layer(p, h, kind=kind, cfg=cfg, run=run,
                                       mode=mode, positions=positions,
-                                      ftc=ftc, name=name)
+                                      ftc=ftc, name=name, enc_out=enc_out)
                 return y, a
             p = params["layers"][lid]
             if run.remat == "block" and torch.is_grad_enabled():
@@ -139,9 +181,34 @@ def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
         x, new_caches[lid], aux = apply_layer(
             params["layers"][lid], x, kind=kind, cfg=cfg, run=run, mode=mode,
             cache=None if caches is None else caches[lid],
-            positions=positions, ftc=ftc, name=name)
+            positions=positions, ftc=ftc, name=name, enc_out=enc_out)
         aux_total = aux_total + aux
     return x, (None if train else new_caches), aux_total
+
+
+def encode(params, frames, *, cfg, run, ftc=None):
+    """The encoder stack over precomputed frontend frame embeddings (B, T,
+    D), then ``enc_norm``.  Unrolled configs run each layer under ``ftc``
+    with site names ``enc{i}``; scanned ones, as the reference's scan body,
+    with no fault context (clean float math).  Under ``run.remat ==
+    "block"`` a training forward recomputes each layer in the backward
+    pass."""
+    B, T, _ = frames.shape
+    positions = torch.arange(T, device=frames.device).expand(B, T)
+    lctx = ftc if cfg.unroll else None
+    x = frames
+    for i in range(cfg.n_enc_layers):
+        def layer(p, h, name=f"enc{i}" if cfg.unroll else "enc"):
+            return apply_layer(p, h, kind="E", cfg=cfg, run=run,
+                               mode="train", positions=positions, ftc=lctx,
+                               name=name)[0]
+        p = params["enc_layers"][f"l{i}"]
+        if run.remat == "block" and torch.is_grad_enabled():
+            x = checkpoint(layer, p, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(p, x)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 # ------------------------------------------------------------- embedding ---
@@ -155,15 +222,30 @@ def embed_tokens(params, cfg, tokens):
 
 
 def assemble_inputs(params, cfg, batch):
-    """Token-only input embedding (the frontends come with their families).
-    Returns (x, labels, mask)."""
-    if cfg.frontend or cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.frontend or 'encoder'} inputs are "
-                                  "not ported yet")
+    """The family's input embedding.  Returns (x, labels, mask, enc_out),
+    labels and mask aligned to predict ``labels[t]`` from ``hidden[t]``.
+    The vision family puts its ``patch_embeds`` (B, P, D), in the compute
+    dtype and scaled as the tokens are, in front of the tokens, and labels
+    the first P - 1 positions -1 (masked out); the encoder-decoder family's
+    ``frames`` (B, T, D) become ``enc_out`` (None otherwise), the encoder's
+    input."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
-    labels = tokens[:, 1:]
-    return x, labels, torch.ones_like(labels, dtype=torch.bool)
+    if cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(x.dtype)
+        if cfg.scale_embeds:
+            patches = patches * torch.full((), cfg.d_model ** 0.5,
+                                           dtype=x.dtype, device=x.device)
+        x = torch.cat([patches, x], dim=1)
+        B, P = patches.shape[:2]
+        labels = torch.cat([torch.full((B, P - 1), -1, dtype=tokens.dtype,
+                                       device=tokens.device), tokens], dim=1)
+        mask = labels >= 0
+    else:
+        labels = tokens[:, 1:]
+        mask = torch.ones_like(labels, dtype=torch.bool)
+    enc_out = batch["frames"].to(x.dtype) if cfg.enc_dec else None
+    return x, labels, mask, enc_out
 
 
 # ------------------------------------------------------------------ loss ---

@@ -35,7 +35,9 @@ the reference.
 
 The scan keeps one set of static caches and one graph, for the shape of
 the last prefill's caches (the batch, the capacity of full-attention
-layers, and the recurrent state rows of R and S layers): each generation
+layers, the recurrent state rows of R and S layers, and an
+encoder-decoder's cross-attention keys and values, as long as its
+encoder's input; decode attends to all of them): each generation
 copies its prefill's caches into them, and a new shape frees them and
 captures a new graph, so a server holds one set whatever the prompts it
 sees.  Not ported yet (ROADMAP.md): device meshes.
@@ -146,13 +148,17 @@ class Engine:
     @torch.no_grad()
     def generate(self, batch, max_new_tokens: int | None = None, *,
                  key=None, seed: int | None = None) -> torch.Tensor:
-        """batch: {"tokens": (B, S) int tensor}.  Returns (B, new) int32
-        tokens on the engine's device."""
+        """batch: {"tokens": (B, S) int tensor}, with the vision family's
+        ``patch_embeds`` (B, P, D) or the encoder-decoder's ``frames`` (B,
+        T, D).  Returns (B, new) int32 tokens on the engine's device."""
         n_new = (self.cfg.max_new_tokens if max_new_tokens is None
                  else max_new_tokens)
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        batch = {"tokens": tokens}
-        prompt_len = tokens.shape[1]
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()
+                 if k in ("tokens", "patch_embeds", "frames")}
+        prompt_len = batch["tokens"].shape[1]
+        if self.model.cfg.frontend == "vision":
+            prompt_len += self.model.cfg.n_frontend_tokens
         ftkey, skey = self._call_key(key, seed)
         caches, logits = self.model.prefill(self.params, batch,
                                             max_len=prompt_len + n_new,

@@ -44,12 +44,20 @@ the graph owns.  ``loop="python"`` runs the same step eagerly on any
 device.  ``SchedStats`` counts the same calls the reference counts as
 executables, in both loops.
 
-The recurrent families (R and S layers) schedule with exact-length prefill
-(``buckets=None``), as in the reference: a right-padded prompt would run
-its pads through the recurrence.  Their state lives in dense per-slot rows
+The recurrent families (R and S layers) and the encoder-decoder family
+schedule with exact-length prefill (``buckets=None``), as in the
+reference: a right-padded prompt would run its pads through the
+recurrence or the encoder.  Their state lives in dense per-slot rows
 beside the attention caches under either ``kv`` layout; admission writes a
-request's rows into its slot.  Not ported (ROADMAP.md): ``mesh=``, the
-encoder-decoder and vision families (the port's model raises for them).
+request's rows into its slot.  An encoder-decoder request carries its
+encoder input in ``extras={"frames": (T, D)}``; its slot keeps per-slot
+cross-attention rows of ``capacity - max_new_tokens`` positions and the
+row's valid length ``cn``, so slots hold encoder contexts of different
+lengths.  That needs the paged layout: the dense one has no ``cn`` (the
+reference's dense Scheduler fails on such a model), so it is refused.  A
+vision request carries ``extras={"patch_embeds": (P, D)}``: its P patch
+positions come before the prompt, in the capacity, the block count and
+every position (``_front``).  Not ported (ROADMAP.md): ``mesh=``.
 """
 from __future__ import annotations
 
@@ -147,13 +155,21 @@ class Scheduler:
                 "models schedule with buckets=None (exact-length "
                 "prefill); their recurrent/SSM state lives in dense "
                 "per-slot rows under either kv layout")
-        if (not exact and "L" in kinds
-                and max(self.cfg.buckets) > mcfg.window):
+        if mcfg.enc_dec and self.cfg.kv != "paged":
             raise ValueError(
-                f"buckets {self.cfg.buckets} exceed the sliding window "
-                f"{mcfg.window}: pad tokens would evict real history from "
-                "the rolling cache (use buckets=None for exact-length "
-                "prefill)")
+                "an encoder-decoder model schedules with kv='paged': the "
+                "dense layout's cross-attention rows have no per-slot valid "
+                "length cn, so a slot could not hold an encoder context "
+                "shorter than the buffer")
+        self._front = (mcfg.n_frontend_tokens if mcfg.frontend == "vision"
+                       else 0)
+        if (not exact and "L" in kinds
+                and self._front + max(self.cfg.buckets) > mcfg.window):
+            raise ValueError(
+                f"buckets {self.cfg.buckets} (+ {self._front} frontend "
+                f"tokens) exceed the sliding window {mcfg.window}: pad "
+                "tokens would evict real history from the rolling cache "
+                "(use buckets=None for exact-length prefill)")
         if exact and self.cfg.max_prompt is None:
             raise ValueError("buckets=None (exact-length prefill) needs "
                              "cfg.max_prompt to bound slot capacity")
@@ -168,7 +184,7 @@ class Scheduler:
         # plus a full generation
         max_prompt = (self.cfg.max_prompt if exact
                       else max(self.cfg.buckets))
-        self.capacity = max_prompt + self.cfg.max_new_tokens
+        self.capacity = max_prompt + self.cfg.max_new_tokens + self._front
         self._window = mcfg.window if "L" in kinds else 0
         bs = self.cfg.block_size
         self._wg = -(-self.capacity // bs)
@@ -222,10 +238,18 @@ class Scheduler:
         """Write a B = 1 prefill's caches into ``slot``: paged attention
         leaves are scattered through the slot's new block table; dense
         leaves (dense KV, the R and S layers' state rows) are slot-row
-        writes."""
+        writes; cross-attention rows fill the slot's first ``s1e`` (the
+        encoder input's length) positions, and ``cn[slot] = s1e``."""
         for lid, kind in zip(caches, self._kinds):
             for key, dst in caches[lid].items():
                 new = c1[lid][key]
+                if key == "cross":
+                    s1e = new["ck"].shape[1]
+                    for name in ("ck", "cv"):
+                        dst[name][slot, :s1e] = new[name][0].to(
+                            dst[name].dtype)
+                    dst["cn"][slot] = s1e
+                    continue
                 if "bt" in dst:
                     wdw = self._window if kind == "L" else 0
                     row = bt_l if wdw else bt_g
@@ -286,8 +310,8 @@ class Scheduler:
         batch1 = {"tokens": toks.to(self.device)}
         for k, v in (req.extras or {}).items():
             batch1[k] = torch.as_tensor(v, device=self.device)[None]
-        last_idx = torch.full((1,), L - 1, device=self.device)
-        return batch1, last_idx, L
+        last_idx = torch.full((1,), self._front + L - 1, device=self.device)
+        return batch1, last_idx, self._front + L
 
     def _blocks_needed(self, plen: int, max_new: int) -> int:
         if self.cfg.kv != "paged":
@@ -306,9 +330,11 @@ class Scheduler:
         if self._caches is None:
             paged = ((self.cfg.block_size, self.n_blocks)
                      if self.cfg.kv == "paged" else None)
+            enc_len = (self.capacity - self.cfg.max_new_tokens
+                       if self.model.cfg.enc_dec else None)
             self._caches = self.model.init_cache(
                 self.cfg.max_batch, self.capacity, device=self.device,
-                paged=paged)
+                paged=paged, enc_len=enc_len)
         else:
             for c in tree.leaves(self._caches):
                 c.zero_()
@@ -325,7 +351,7 @@ class Scheduler:
         self.stats = SchedStats()
         seen_rids = set()
         for req in requests:
-            plen = self._bucket(len(req.tokens))          # fail fast
+            plen = self._front + self._bucket(len(req.tokens))  # fail fast
             if req.rid in seen_rids:
                 raise ValueError(
                     f"duplicate request id {req.rid}: results are keyed by "
@@ -337,6 +363,14 @@ class Scheduler:
                     f"but the slot capacity budgets cfg.max_new_tokens="
                     f"{cfg.max_new_tokens}: decoding past capacity would "
                     "overwrite cache history")
+            if self.model.cfg.enc_dec and req.extras:
+                fl = len(req.extras["frames"])
+                if fl > self.capacity - cfg.max_new_tokens:
+                    raise ValueError(
+                        f"request {req.rid} encoder input length {fl} "
+                        f"exceeds the cross-attention capacity "
+                        f"{self.capacity - cfg.max_new_tokens} "
+                        "(cfg.max_prompt)")
             if (cfg.kv == "paged"
                     and self._blocks_needed(plen, req.max_new_tokens)
                     > self.n_blocks - 1):
@@ -392,8 +426,9 @@ class Scheduler:
             for s in range(B):
                 while slots[s] is None and queue:
                     req = queue[0]
-                    need = self._blocks_needed(self._bucket(len(req.tokens)),
-                                               req.max_new_tokens)
+                    need = self._blocks_needed(
+                        self._front + self._bucket(len(req.tokens)),
+                        req.max_new_tokens)
                     if need > len(free_blocks):
                         break               # wait for evictions to free blocks
                     queue.popleft()

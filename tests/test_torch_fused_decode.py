@@ -142,7 +142,7 @@ def test_plain_matches_pallas_and_jax_ref_at_the_clamps(per_row, dppu_src,
 # chunk deep enough for a partial past 2**23 (2 chunks of 3456), a ragged
 # last chunk (2561 = 13 x 192 + 65), and K under one 64-step (one chunk)
 SPLIT_SHAPES = ((4, 2560, 640), (256, 6912, 2560), (17, 2561, 130),
-                (16, 31, 648))
+                (16, 31, 648), (4, 16384, 2048), (1280, 16384, 2048))
 
 
 def _split_matmul(chunks, saturate_each=False):
@@ -162,11 +162,11 @@ def _split_matmul(chunks, saturate_each=False):
 
 def _straddle(xq, wq, kc):
     """Row 0 against column 0: the first chunk's partial 127 * 127 * kc
-    (> 2**23 once kc > 520), the rest -127 * 127 but for 64 zeros, so the
-    total is 127 * 127 * 64 (about 2**20)."""
+    (> 2**23 once kc > 520), the second's -127 * 127 * (kc - 64), the
+    later chunks' 0, so the total is 127 * 127 * 64 (about 2**20)."""
     xq[0] = 127
-    wq[:kc, 0], wq[kc:, 0] = 127, -127
-    wq[kc:kc + 64, 0] = 0
+    wq[:, 0] = 0
+    wq[:kc, 0], wq[kc:2 * kc - 64, 0] = 127, -127
 
 
 @pytest.mark.parametrize("mkn", SPLIT_SHAPES)
@@ -183,7 +183,8 @@ def test_split_k_sum_is_the_plain_version(monkeypatch, mkn):
     assert plan.kc % tplan.BK == 0 and len(chunks) <= tplan.MAX_SPLITS
     assert all(k1 > k0 for k0, k1 in chunks)
     ops = _operands(min(m, 6), k, min(n, 12), seed=k)
-    straddles = len(chunks) > 1 and 127 * 127 * plan.kc > 1 << 23
+    straddles = (len(chunks) > 1 and 127 * 127 * plan.kc > 1 << 23
+                 and chunks[1][1] - chunks[1][0] >= plan.kc - 64)
     if straddles:
         _straddle(ops["xq"], ops["wq"], plan.kc)
     x, w, oflips = (torch.from_numpy(ops[a]) for a in ("xq", "wq", "oflips"))

@@ -130,6 +130,39 @@ def test_kernel_matches_plain(cuda, mkn, per_row, dppu_src, perrow_wf):
                   perrow_wf)
 
 
+# (M, K, N) of the encoder-decoder and vision families' projections at their
+# published widths (B = 4): seamless-m4t-medium's (1024, 1024), (1024,
+# 4096) and (4096, 1024) at decode and at a 64-token prefill, its xk/xv at
+# a 96-frame encoder input; paligemma-3b's at decode and at a prefill of
+# 256 patches + 64 tokens, K = 16384 (its MLP's wo) the deepest K served
+ENC_VISION_SHAPES = (
+    tuple((m, k, n) for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))
+          for m in (4, 256)) + ((384, 1024, 1024),)
+    + tuple((m, k, n) for k, n in ((2048, 2048), (2048, 256), (2048, 16384),
+                                   (16384, 2048)) for m in (4, 1280)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_row", (False, True))
+@pytest.mark.parametrize("mkn", ENC_VISION_SHAPES)
+def test_kernel_matches_plain_at_the_enc_dec_and_vision_shapes(cuda, mkn,
+                                                               per_row):
+    """No DPPU, global and per-row t: random operands at q_scale 4, then
+    the epilogue's clamps (``_edges``) at q_scale 0, 12 and 20."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    ops = dict(xq=torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                                dtype=torch.int8),
+               wq=torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                                dtype=torch.int8),
+               oflips=torch.randint(0, 256, (m, n), generator=g, device=cuda,
+                                    dtype=torch.int32))
+    _check_kernel(ops, 4, m, per_row, "none", False)
+    ops = _edges(ops)
+    for q in (0, 12, 20):
+        _check_kernel(ops, q, m, per_row, "none", False)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("per_row,dppu_src,perrow_wf", MODES)
 @pytest.mark.parametrize("mkn", ((4, 2560, 640), (37, 1000, 130)))

@@ -33,7 +33,9 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.configs.mamba2_2_7b, "
             "repro_torch.configs.recurrentgemma_9b, "
             "repro_torch.configs.qwen2_7b, repro_torch.configs.glm4_9b, "
-            "repro_torch.configs.gemma2_27b, repro_torch.configs.dbrx_132b; "
+            "repro_torch.configs.gemma2_27b, repro_torch.configs.dbrx_132b, "
+            "repro_torch.configs.seamless_m4t_medium, "
+            "repro_torch.configs.paligemma_3b; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
