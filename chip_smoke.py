@@ -56,12 +56,13 @@ its last line:
      tokens;
   7b. scan on the pallas backend, as 6b (at phase 7's depth), against
      phase 7's tokens;
-  8. scheduler: the same model (12 of 24 layers) through the continuous-
-     batching Scheduler (4 slots, buckets 32/64, paged KV cache of 16-token
+  8. scheduler: the same widths at 6 of the 24 layers (SCHED_LAYERS)
+     through the continuous-batching Scheduler (4 slots, buckets 32/64,
+     paged KV cache of 16-token
      blocks, 4 decode steps per round trip; loop="python", pinned as in 6)
      serving 8 requests of 9-64 prompt and 4-16 new tokens under crt3 at
      BER 1e-4 on the fused backend: fused_decode at prefill (B = 1, global
-     t) and at decode (per-request keys, per-row t), launched 7 x 12 times
+     t) and at decode (per-request keys, per-row t), launched 7 x 6 times
      per prefill call and per decode step, its device time by prefill and
      decode; every request's tokens equal the reference backend's; one
      request alone gives the tokens it gave in the crowd; the kernel phase
@@ -75,9 +76,10 @@ its last line:
   8c. families: the MoE, Mamba2-SSD, RG-LRU, encoder-decoder and
      vision-frontend families at their published widths (phase_family's
      docstring; FAMILIES: mamba2-2.7b at 16 of its 64, recurrentgemma-9b
-     at 14 of its 38, qwen3-moe-235b-a22b at 4 of its 94 with all 128
-     experts, seamless-m4t-medium at all 12 + 12, paligemma-3b at all
-     18), random bf16 weights from a seed, B = 4, a 64-token prompt
+     at 5 of its 38, qwen3-moe-235b-a22b at 4 of its 94 with all 128
+     experts, seamless-m4t-medium at 6 + 6 of its 12 + 12, paligemma-3b
+     at 6 of its 18; the train phase runs the last two whole), random
+     bf16 weights from a seed, B = 4, a 64-token prompt
      (seamless: 96 encoder frames; paligemma: 256 patch rows in front), 8
      new tokens, crt3 at BER 1e-4: the scan's graph tokens equal the
      reference backend's and the eager loop's, whose every fused_decode
@@ -120,7 +122,18 @@ its last line:
      gradients; then the CNN trained through cl faults
      (trained_cnn_fat("vgg", 250, fat_ber=2e-3): fused_decode at the
      batch-64 conv shapes, which the kernel phase also checks and times)
-     and FatCnnOracle over fat_ber 0 and 2e-3;
+     and FatCnnOracle over fat_ber 0 and 2e-3; then the families
+     (train_families' docstring): mamba2-2.7b (16 of its 64 layers),
+     recurrentgemma-9b (5 of 38), qwen3-moe-235b-a22b (1 of 94, its
+     grad_accum of 4 and bf16 moments), seamless-m4t-medium (12 + 12) and
+     paligemma-3b (18, S = 320) at their published widths, B = 4, S = 64,
+     batches from make_batch on the card (bf16 frames and patch rows):
+     one clean step, one FAT step (crt3 at BER 1e-4) with fused_decode's
+     launches counted against 2 x the protected projections x the
+     microbatches and timed, one with every launch held bitwise to
+     fused_ref, one profiled; and a seamless Trainer at 1 + 1 layers
+     resumed from its middle checkpoint, bitwise (the kernel phase also
+     checks and times the families' train shapes, M = 64, 256, 1280);
   9c. split: the same faulty reduced Scheduler, eager, on the card and on
      the CPU: the first protected projection whose int8 input differs
      between them, with the last-place differences of its input and of
@@ -128,8 +141,9 @@ its last line:
  10. a ``kernels`` JSON line (per kernel: its launches and device time on
      its path, and the kernel phase's sums of kernel, bound, plain and
      ``_int_mm`` times, with ``bound_share`` = bound / kernel time;
-     fused_decode's also the same for its scheduler run, its DSE run and
-     its two training runs, and the families phase's generations),
+     fused_decode's also the same for its scheduler run, its DSE run, its
+     two training runs, the families phase's generations and the families'
+     FAT steps),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -185,6 +199,10 @@ MISALIGNED_SHAPES = ((4, 2560, 640), (256, 2560, 640), (17, 2561, 648))
 # path at 24)
 SERVE_LAYERS = 12
 PALLAS_LAYERS = 4
+# the scheduler phases (8, 8b) at 6 of the 24 layers: their B = 1 eager
+# prefills and eager chunks are host-bound (103 s at 12 layers), and the
+# train phase's families part took their time
+SCHED_LAYERS = 6
 # the kernels on the split-K tensor-core GEMM core
 CORE_KERNELS = ("fused_decode", "protected_mm", "qmatmul")
 # the dse phase: the reference's benchmark settings (CNNConfig(), trained
@@ -204,18 +222,38 @@ TRAIN = dict(seq=64, batch=4, clean_steps=2, fat_steps=2, policy="crt3",
              ber=1e-4, fat_ramp=2, fat_seed=17, trainer_layers=2,
              trainer_fat_steps=4, ckpt_every=2, cnn_steps=250,
              cnn_fat_ber=2e-3, cnn_batch=64, ste_rtol=1e-6)
+# the train phase's families part: each family at its published widths
+# (random bf16 weights from a seed, its RUN's Adam dtype and grad_accum) at
+# these depths (None: all), chosen for the card's 80 GB at ~13.5 bytes per
+# parameter of a FAT step's peak (danube: 24.3 GB for 1.8e9): mamba2-2.7b
+# 16 of 64 (0.77e9 parameters), recurrentgemma-9b 5 of 38 (one R,R,L
+# period and the R,R tail, ~2.0e9: 14 layers would reach ~52 GB),
+# qwen3-moe-235b-a22b 1 of 94 (all 128 experts, bf16 moments, ~3.1e9),
+# seamless-m4t-medium 12 + 12, paligemma-3b 18; B = 4, S = 64 (paligemma
+# 320: its 256 patch rows come out of S); one clean step, one FAT step
+# (crt3 at BER 1e-4 without weight faults, from the first step on) with
+# its launches counted and timed, one with every launch held bitwise to
+# fused_ref, one profiled; then the Trainer of seamless at 1 + 1 layers
+# (a checkpoint of ~2.7 GB; the run writes 4)
+TRAIN_FAMILIES = {"mamba2-2.7b": 16, "recurrentgemma-9b": 5,
+                  "qwen3-moe-235b-a22b": 1, "seamless-m4t-medium": None,
+                  "paligemma-3b": None}
+TRAIN_FAM = dict(batch=4, seq=64, seq_vision=320, policy="crt3", ber=1e-4,
+                 fat_seed=17, trainer_arch="seamless-m4t-medium",
+                 trainer_layers=1, trainer_fat_steps=4, ckpt_every=2)
 # the families phase: each architecture at its published widths, at this
 # many layers (None: all): mamba2-2.7b at 16 of its 64 (all 64 took ~50 s
-# more of the script's time limit), recurrentgemma-9b at 14 of its 38 (4
-# whole R,R,L periods and the R,R tail; all 38 took ~95 s more),
-# qwen3-moe-235b-a22b at 4 of its 94 (its ~470 GB cannot fit one card; all
-# 128 experts, top-8), seamless-m4t-medium's 12 encoder and 12 decoder
-# layers, paligemma-3b's 18; B = 4, a 64-token prompt, 8 new tokens, crt3
-# at BER 1e-4 without weight faults; then 6 requests of 8-48 prompt tokens
+# more of the script's time limit), recurrentgemma-9b at 5 of its 38 (one
+# R,R,L period and the R,R tail; 14 took ~40 s more), qwen3-moe-235b-a22b
+# at 4 of its 94 (its ~470 GB cannot fit one card; all 128 experts,
+# top-8), seamless-m4t-medium at 6 + 6 of its 12 + 12 and paligemma-3b at
+# 6 of its 18 (whole, they took ~40 s and ~80 s more; the train phase
+# runs both whole); B = 4, a 64-token prompt, 8 new tokens, crt3 at BER
+# 1e-4 without weight faults; then 6 requests of 8-48 prompt tokens
 # through a Scheduler
-FAMILIES = {"mamba2-2.7b": 16, "recurrentgemma-9b": 14,
-            "qwen3-moe-235b-a22b": 4, "seamless-m4t-medium": None,
-            "paligemma-3b": None}
+FAMILIES = {"mamba2-2.7b": 16, "recurrentgemma-9b": 5,
+            "qwen3-moe-235b-a22b": 4, "seamless-m4t-medium": 6,
+            "paligemma-3b": 6}
 FAM = dict(batch=4, prompt=64, new=8, policy="crt3", ber=1e-4)
 FAM_SCHED = dict(max_batch=4, buckets=None, max_prompt=48,
                  max_new_tokens=8, decode_chunk=4, kv="paged", block_size=16)
@@ -345,11 +383,19 @@ def scheduler_shapes():
 
 def family_config(arch):
     """The families phase's config of ``arch``: published widths, at
-    ``FAMILIES[arch]`` layers where set."""
+    ``FAMILIES[arch]`` layers where set (and as many encoder layers as
+    decoder layers)."""
+    return _cut_config(arch, FAMILIES[arch])
+
+
+def _cut_config(arch, n):
+    """``arch`` at its published widths, at ``n`` layers (None: all) and
+    at most as many encoder layers."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if FAMILIES[arch] is not None:
-        cfg = dataclasses.replace(cfg, n_layers=FAMILIES[arch])
+    if n is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=n, n_enc_layers=min(cfg.n_enc_layers, n))
     return cfg
 
 
@@ -390,6 +436,34 @@ def family_cross_kn(cfg):
     if not cfg.enc_dec:
         return []
     return [(cfg.d_model, cfg.n_kv_heads * cfg.d_head)] * (2 * cfg.n_layers)
+
+
+def family_train_config(arch):
+    """The train phase's config of ``arch``: published widths at
+    ``TRAIN_FAMILIES[arch]`` layers where set (and as many encoder layers
+    as decoder layers)."""
+    return _cut_config(arch, TRAIN_FAMILIES[arch])
+
+
+def family_train_seq(cfg):
+    return TRAIN_FAM["seq_vision"] if cfg.frontend == "vision" \
+        else TRAIN_FAM["seq"]
+
+
+def family_train_launches(arch):
+    """{(M, K, N): fused_decode launches of one FAT step of ``arch``}: every
+    protected projection (``family_kn`` and an encoder-decoder's xk / xv
+    over its S frames; the full-width encoder is scanned and clean) once in
+    the forward and once in the backward's recompute, per microbatch of
+    B x S / grad_accum rows."""
+    from repro_torch.configs import get_run_config
+    cfg = family_train_config(arch)
+    accum = get_run_config(arch).grad_accum
+    M = TRAIN_FAM["batch"] * family_train_seq(cfg) // accum
+    out = collections.Counter()
+    for kn in family_kn(cfg) + family_cross_kn(cfg):
+        out[(M,) + kn] += 2 * accum
+    return out
 
 
 def family_prefill_len(cfg):
@@ -666,6 +740,36 @@ def phase_kernels(torch):
         fam_rows.append(row)
         emit({"phase": "kernel", "kernel": "fused_decode", **row})
         del ops
+    timed = {tuple(r["shape"]): r for r in fam_rows}
+    train_shapes = collections.Counter()
+    for arch in TRAIN_FAMILIES:
+        train_shapes.update(family_train_launches(arch))
+    for (M, K, N), count in sorted(train_shapes.items()):
+        if (M, K, N) in timed:          # a families-phase prefill shape
+            row = dict(timed[(M, K, N)], path="train families",
+                       launches_per_fat_step=count)
+            row.pop("launches_per_generation")
+        else:
+            ops = _operands(torch, g, dev, M, K, N)
+            max_err = max(max_err, _check_modes(torch, g, ops, (3,)))
+            qs = torch.tensor([3], dtype=torch.int32, device=dev)
+            args = (ops["xq"], ops["wq"], ops["oflips"], qs)
+            b_ms, b_by = bound(M, K, N, (False, "none", False))
+            row = dict(shape=[M, K, N], path="train families",
+                       mode="global t, no DPPU",
+                       launches_per_fat_step=count,
+                       plan=list(kernel.gemm_plan(M, K, N, sm_count(dev))),
+                       kernel_ms=cuda_ms(torch, functools.partial(
+                           kernel.fused_decode, *args), 20),
+                       bound_ms=b_ms, bound_by=b_by,
+                       plain_ms=cuda_ms(torch, functools.partial(
+                           fused_ref, *args[:3], qs.reshape(())), 5),
+                       library_ms=cuda_ms(torch, functools.partial(
+                           torch._int_mm, ops["xq"], ops["wq"]), 20))
+            row["bound_share"] = b_ms / row["kernel_ms"]
+            del ops
+        fam_rows.append(row)
+        emit({"phase": "kernel", "kernel": "fused_decode", **row})
     conv_rows = []
     for path, site, (M, K, N) in (
             [("dse", *c) for c in conv_shapes()]
@@ -2052,7 +2156,9 @@ def _profile(torch, fn, kernel):
     """Wall time of ``fn`` and the device time of its kernels, from one run
     under torch.profiler: all kernels, and those whose name holds
     ``kernel``.  Only the device is traced: an eager step's ~140k host ops
-    would double the events to read back."""
+    would double the events to read back.  The trace's raw events are read
+    (``kineto_results``), not ``prof.events()``, whose Python event objects
+    cost ~0.2 ms each: ~80 s for a paligemma FAT step's ~400k kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2060,17 +2166,19 @@ def _profile(torch, fn, kernel):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = kern_us = 0.0
+    dev_ns = kern_ns = 0
     n_kernels = n_kernel = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
             continue
-        us = e.device_time_total
-        dev_us += us
+        ns = e.duration_ns()
+        dev_ns += ns
         n_kernels += 1
-        if kernel in e.name:
-            kern_us += us
+        if kernel in e.name():
+            kern_ns += ns
             n_kernel += 1
+    dev_us, kern_us = dev_ns / 1e3, kern_ns / 1e3
     return {"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
             "kernel": kernel, "kernel_ms": kern_us / 1e3,
             "kernels_launched": n_kernels, "kernel_launches": n_kernel}
@@ -2513,9 +2621,13 @@ def phase_train(torch):
       cnn: trained_cnn_fat("vgg", 250, fat_ber=2e-3) on the card (every
         site of every step one fused_decode launch, at batch 64), then
         FatCnnOracle over fat_ber 0 and 2e-3: accuracy under cl at 2e-3 for
-        each, and its batch equal to the singles.
+        each, and its batch equal to the singles;
+      families: the MoE, Mamba2-SSD, RG-LRU, encoder-decoder and vision
+        families' clean and FAT steps and a Trainer resume
+        (train_families).
     Returns the launches and device ms of the LM's FAT steps and of the
-    CNN's FAT training, with their launches per shape."""
+    CNN's FAT training, with their launches per shape, and the families'
+    (train_families)."""
     import dataclasses as dc
     import math
     import shutil
@@ -2771,7 +2883,228 @@ def phase_train(torch):
     trained_cnn_fat.cache_clear()
     torch.cuda.empty_cache()
     return dict(launches=launches, ms=fat_ms, per_shape=lm_shapes,
-                cnn_launches=cnn_launches, cnn_per_shape=per_shape)
+                cnn_launches=cnn_launches, cnn_per_shape=per_shape,
+                families=train_families(torch))
+
+
+def train_families(torch):
+    """The train phase's families part: each of TRAIN_FAMILIES at its
+    published widths and cut depth, its batches from LMIterator on the card
+    (make_batch's bfloat16 ``frames`` / ``patch_embeds`` drawn there), its
+    RUN's grad_accum (qwen3-moe: 4 microbatches) and Adam dtype, through
+    make_train_step:
+
+      * one clean step;
+      * one FAT step on the fused backend (crt3 at BER 1e-4 from the first
+        step on, no weight faults): fused_decode launched exactly 2 x the
+        protected projections x the microbatches (the forward, and the
+        backward's recompute), its launches timed with CUDA events;
+      * one more FAT step with every launch held bitwise to fused_ref;
+      * one FAT step profiled (device kernel time, busy share, kernels);
+    step seconds, tokens/s (B x S positions), peak memory, finite losses;
+    then the Trainer of TRAIN_FAM["trainer_arch"] at trainer_layers (its
+    checkpoints small: the script writes at most 45 GiB to disk in a run)
+    over the same batches: 2 clean steps, a FAT Trainer that restores them
+    and runs on with async checkpoints, and a fresh FAT Trainer restored
+    from the middle checkpoint, which must end bitwise on the
+    uninterrupted run's state and losses.  Returns {arch: launches, ms,
+    per_shape} of the counted FAT steps, and the Trainer's seconds."""
+    import math
+    import shutil
+
+    from repro_torch import ft
+    from repro_torch.configs import get_run_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import LMIterator
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, init_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    policy = ft.get_policy(TRAIN_FAM["policy"], ber=TRAIN_FAM["ber"],
+                           weight_faults=False)
+    fat_kw = dict(policy=policy, ft_ber=TRAIN_FAM["ber"],
+                  ft_key=prng.PRNGKey(TRAIN_FAM["fat_seed"], dev),
+                  ft_backend="fused")
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        t_arch = time.perf_counter()
+        cfg = family_train_config(arch)
+        run = get_run_config(arch)
+        seq = family_train_seq(cfg)
+        shape = ShapeConfig("chip_train", "train", seq, TRAIN_FAM["batch"])
+        positions = TRAIN_FAM["batch"] * seq
+        opt = AdamWConfig(dtype=run.adam_dtype)
+        model = build(cfg, run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(model, torch.Generator(device=dev).manual_seed(0),
+                           opt, dev)
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        data = LMIterator(cfg, shape, device=dev)
+        batch = next(data)
+        inputs = {k: [list(v.shape), str(v.dtype).split(".")[1],
+                      str(v.device)] for k, v in batch.items()}
+        if any(v.device.type != dev.type for v in batch.values()) or (
+                (cfg.enc_dec or cfg.frontend == "vision") and not any(
+                    v.dtype == torch.bfloat16 for v in batch.values())):
+            raise AssertionError(f"{arch}: the batch is not on the card in "
+                                 f"the reference's dtypes: {inputs}")
+        want = family_train_launches(arch)
+        per_step = sum(want.values())
+        losses, secs = {}, {}
+
+        def timed(name, fn, b):
+            nonlocal state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = fn(state, b)
+            losses[name] = float(met["loss"])
+            secs[name] = time.perf_counter() - t0
+        timed("clean", make_train_step(model, opt), batch)
+        fat_step = make_train_step(model, opt, **fat_kw)
+        timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+        real_lib = kernel._lib
+        kernel._lib = lambda: timer
+        kernel.fused_decode.launches = 0    # the FAT step starts here
+        try:
+            timed("fat", fat_step, next(data))
+            torch.cuda.synchronize()
+        finally:
+            kernel._lib = real_lib
+        launches = kernel.fused_decode.launches  # ... and ends here
+        fat_ms = timer.ms()
+        if launches != per_step:
+            raise AssertionError(f"{arch}: a FAT step launched fused_decode "
+                                 f"{launches} times, expected {per_step}")
+        seen = collections.Counter()
+        real, checked = _checked_fused_decode(torch, seen)
+        fops.fused_decode = checked
+        try:
+            timed("fat_checked", fat_step, next(data))
+            torch.cuda.synchronize()
+        finally:
+            fops.fused_decode = real
+        got = collections.Counter()
+        for (M, K, N, _), n in seen.items():
+            got[(M, K, N)] += n
+        if got != want:
+            raise AssertionError(f"{arch}: the checked FAT step launched "
+                                 f"{dict(got)}, expected {dict(want)}")
+        batch = next(data)
+        prof = _profile(torch, lambda: timed("fat_profiled", fat_step, batch),
+                        "fused_decode")
+        prof["wall_ms"] = 1e3 * secs["fat"]     # the unprofiled FAT step
+        prof["device_busy_share"] = prof["device_kernel_ms"] / prof["wall_ms"]
+        prof["kernel_share"] = prof["kernel_ms"] / prof["device_kernel_ms"]
+        if prof["kernel_launches"] > 2 * per_step or not prof[
+                "kernels_launched"]:
+            raise AssertionError(f"{arch}: the profiled FAT step ran "
+                                 f"{prof['kernel_launches']} fused_decode "
+                                 f"kernels, expected at most {2 * per_step}")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{arch}: non-finite losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "train", "step": "families", "arch": arch,
+              "family": cfg.family, "layers": cfg.n_layers,
+              "encoder_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+              "params": n_params, "param_dtype": run.param_dtype,
+              "adam_dtype": opt.dtype, "grad_accum": run.grad_accum,
+              "remat": run.remat, "batch": TRAIN_FAM["batch"], "seq": seq,
+              "inputs": inputs, "policy": TRAIN_FAM["policy"],
+              "ber": TRAIN_FAM["ber"], "weight_faults": False,
+              "backend": "fused", "clean_step_s": secs["clean"],
+              "fat_step_s": secs["fat"],
+              "checked_fat_step_s": secs["fat_checked"],
+              "clean_tokens_per_s": positions / secs["clean"],
+              "fat_tokens_per_s": positions / secs["fat"],
+              "losses": losses, "peak_memory_gb": peak / 1e9,
+              "fused_decode_launches": launches,
+              "fused_decode_ms": fat_ms,
+              "launches_checked": sum(seen.values()),
+              "shapes": sorted([list(k), v] for k, v in want.items()),
+              "fat_step_profile": prof,
+              "seconds": time.perf_counter() - t_arch})
+        out[arch] = dict(launches=launches, ms=fat_ms, per_shape=want)
+        del state, data, batch, model
+        torch.cuda.empty_cache()
+
+    # ---- the Trainer of one new-input family at a cut depth
+    t0 = time.perf_counter()
+    arch = TRAIN_FAM["trainer_arch"]
+    n = TRAIN_FAM["trainer_layers"]
+    cfg = _cut_config(arch, n)
+    run = get_run_config(arch)
+    opt = AdamWConfig(dtype=run.adam_dtype)
+    small = build(cfg, run)
+    shape = ShapeConfig("chip_train", "train", family_train_seq(cfg),
+                        TRAIN_FAM["batch"])
+    ckdir = ROOT / "build" / "train_fam_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    fat = dict(fat_policy=policy, fat_ber=TRAIN_FAM["ber"], fat_ramp=0,
+               fat_seed=TRAIN_FAM["fat_seed"])
+    clean_steps = 2
+    total = clean_steps + TRAIN_FAM["trainer_fat_steps"]
+    middle = clean_steps + TRAIN_FAM["ckpt_every"]
+
+    def trainer(sub, steps, every, **kw):
+        return Trainer(small, shape, opt, TrainerConfig(
+            total_steps=steps, ckpt_every=every, ckpt_dir=str(ckdir / sub),
+            keep=2, log_every=10 ** 9, **kw), device=dev)
+    saved, real_save = [], ckpt.save
+
+    def counted_save(ckpt_dir, state, step, **kw):
+        saved.append(step)
+        return real_save(ckpt_dir, state, step, **kw)
+    ckpt.save = counted_save
+    try:
+        trainer("run", clean_steps, TRAIN_FAM["ckpt_every"]).run()
+        fat_run = trainer("run", total, TRAIN_FAM["ckpt_every"], **fat)
+        want_state, step = fat_run.run()
+        steps = ckpt.available_steps(str(ckdir / "run"))
+        if step != total or steps != [middle, total]:
+            raise AssertionError(f"{arch} Trainer: ended at {step} with "
+                                 f"checkpoints {steps}")
+        resumed = trainer("resume", total, 10 ** 9, **fat)
+        s_mid, step_mid, dstate = ckpt.restore(
+            str(ckdir / "run"), resumed.state_like(), step=middle,
+            device=dev)
+        resumed.data.restore(dstate)
+        got_state, _ = resumed.run(s_mid, step_mid)
+        differ = _state_equal(torch, want_state, got_state)
+        cont = {r["step"]: r["loss"] for r in fat_run.metrics_log}
+        if differ or any(r["loss"] != cont[r["step"]]
+                         for r in resumed.metrics_log):
+            raise AssertionError(
+                f"{arch} Trainer: the resumed run differs from the "
+                f"uninterrupted one: {differ[:5]}, losses "
+                f"{[r['loss'] for r in resumed.metrics_log]}")
+    finally:
+        ckpt.save = real_save
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in leaves(got_state)) / 1e9
+    trainer_s = time.perf_counter() - t0
+    emit({"phase": "train", "step": "families_trainer", "arch": arch,
+          "layers": cfg.n_layers, "encoder_layers": cfg.n_enc_layers,
+          "d_model": cfg.d_model, "seq": shape.seq_len,
+          "batch": shape.global_batch,
+          "layers_why": "a checkpoint stays small: the script writes at "
+                        "most 45 GiB to disk in a run",
+          "state_gb": state_gb, "checkpoints_written": len(saved),
+          "checkpoint_steps": saved, "checkpoints": steps,
+          "losses": [r["loss"] for r in fat_run.metrics_log],
+          "fat_bers": [r.get("fat_ber") for r in fat_run.metrics_log],
+          "step_s": [r["sec"] for r in fat_run.metrics_log],
+          f"resume_from_step_{middle}_bitwise": True, "seconds": trainer_s})
+    del want_state, got_state, s_mid, small
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _reduced_scheduler(model, params, backend, policy=None, kv="paged",
@@ -2829,7 +3162,7 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                 max_abs_err=err, ms=ms,
                 **_totals(rows, lambda r: r["launches_per_generation"]),
                 per=gen + ", fused backend", **common)]
-    n_layers = SERVE_LAYERS
+    n_layers = SCHED_LAYERS
     n_prefill = collections.Counter(sched["buckets"])
     kn_count = collections.Counter(LAYER_KN)
 
@@ -2842,7 +3175,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
     out[0].update(
         scheduler_launches=sched["launches"], scheduler_ms=sched["ms"],
         **{f"scheduler_{k}": v for k, v in tot.items()},
-        scheduler_per=("the scheduler phase's run (8 requests, prefill at "
+        scheduler_per=("the scheduler phase's run (8 requests, danube at "
+                       f"{SCHED_LAYERS} of its 24 layers, prefill at "
                        "B=1 per bucket with global t, decode at B=4 with "
                        "per-row t): ms from CUDA events around each launch; "
                        "plain, bound, library and kernel-phase sums from "
@@ -2888,6 +3222,8 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                        "kernel-phase sums from the kernel phase's batch-64 "
                        "conv rows x launches; library_ms pads K = 9 to 16"))
     fam_rows, fam = families
+    train_rows = [r for r in fam_rows if r["path"] == "train families"]
+    fam_rows = [r for r in fam_rows if r["path"] == "families"]
     tot = _totals(fam_rows, lambda r: r["launches_per_generation"])
     out[0].update(
         families_launches=sum(f["launches"] for f in fam.values()),
@@ -2909,6 +3245,30 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
                       + "): launches from the graphs' counts; plain, bound, "
                       "library and kernel-phase sums from the kernel "
                       "phase's family rows x launches"))
+    tf = train["families"]
+    per_shape = collections.Counter()
+    for f in tf.values():
+        per_shape.update(f["per_shape"])
+    tot = _totals(train_rows, lambda r: per_shape[tuple(r["shape"])])
+    out[0].update(
+        train_families_launches=sum(f["launches"] for f in tf.values()),
+        train_families_ms=sum(f["ms"] for f in tf.values()),
+        train_families_launches_per_fat_step={
+            a: f["launches"] for a, f in tf.items()},
+        train_families_ms_per_fat_step={a: f["ms"] for a, f in tf.items()},
+        **{f"train_families_{k}": v for k, v in tot.items()},
+        train_families_per=(
+            "the train phase's counted FAT step of each family (B="
+            f"{TRAIN_FAM['batch']}, S={TRAIN_FAM['seq']}, paligemma "
+            f"S={TRAIN_FAM['seq_vision']}; "
+            + ", ".join(f"{a} at {family_train_config(a).n_layers} layers"
+                        for a in TRAIN_FAMILIES)
+            + f"; {TRAIN_FAM['policy']} at BER {TRAIN_FAM['ber']}: every "
+            "protected projection in the forward and again in the "
+            "backward's recompute, per microbatch, global t): ms from CUDA "
+            "events around each launch; plain, bound, library and "
+            "kernel-phase sums from the kernel phase's train-family rows x "
+            "launches"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
@@ -2972,10 +3332,12 @@ def main() -> int:
     mp = full_model(torch, PALLAS_LAYERS)
     pallas = run(phase_pallas_engine, mp)
     run(phase_scan, mp, "pallas", pallas)
-    del mp
-    sched = run(phase_scheduler, m)
-    run(phase_graph_scheduler, m, sched)
-    del m
+    del mp, m
+    torch.cuda.empty_cache()
+    ms = full_model(torch, SCHED_LAYERS)
+    sched = run(phase_scheduler, ms)
+    run(phase_graph_scheduler, ms, sched)
+    del ms
     torch.cuda.empty_cache()
     families = run(phase_families)
     run(phase_faults)

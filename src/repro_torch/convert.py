@@ -23,7 +23,10 @@ fault draws follows ``cfg.unroll`` (``repro_torch.models.transformer``).
 ``train_state_from_jax(state, cfg)`` takes the reference's train state
 (``{"params", "m", "v", "step"}``, as ``repro.train.init_state`` and its
 train step make it) and returns the port's: the moments in the parameters'
-layout, the step a 0-d int32 tensor.
+layout and in their own dtype (bfloat16 where the reference's
+``AdamWConfig(dtype=run.adam_dtype)`` made them so, as qwen3-moe's
+``RUN``), every family's leaves as ``params_from_jax`` reads them, the
+step a 0-d int32 tensor.
 
 ``cnn_params_from_jax(tree)`` takes the reference's CNN tree
 (``repro.models.cnn.init_cnn`` / ``train_cnn``: ``{"s0_c0": {"w", "b"},

@@ -16,7 +16,10 @@ carries its own copy of the generator, bit for bit:
   * ``bits(key, shape)``: ``bits1 ^ bits2`` over the counters
     ``(0, flat_index)`` (jax ``_threefry_random_bits_partitionable``);
   * ``uniform``: ``((bits >> 9) | 0x3F800000)`` viewed as float32, minus 1,
-    then scaled to ``[minval, maxval)`` (jax ``_uniform``);
+    then scaled to ``[minval, maxval)`` (jax ``_uniform``).  In bfloat16
+    (7 mantissa bits, so jax draws 8-bit words: the low byte of each
+    word) ``((bits & 0xFF) >> 1) | 0x3F80`` viewed as bfloat16, minus 1,
+    every later operation rounded to bfloat16 as XLA rounds it;
   * ``bernoulli(key, p, shape)``: ``uniform(key, shape) < float32(p)``;
   * ``randint(key, shape, lo, hi)``: two words per draw from ``split(key)``,
     reduced modulo the span in uint32 arithmetic (jax ``_randint``), so
@@ -26,7 +29,10 @@ carries its own copy of the generator, bit for bit:
     (Giles' single-precision polynomial), evaluated here in the same steps
     with its Horner steps as fused multiply-adds, as XLA compiles them; its
     ``log1p`` is each framework's own, so a draw may sit up to 3 ulps from
-    JAX's (1% of draws differ; tests/test_torch_cnn.py states the bound);
+    JAX's (1% of draws differ; tests/test_torch_cnn.py states the bound).
+    In bfloat16 the uniform takes 128 values, ``erfinv`` runs in float32
+    and is rounded once, and the product with ``sqrt(2)`` is rounded
+    again: bitwise jax's on every one of the 128;
   * ``gumbel``: ``-log(-log(uniform(key, shape, tiny, 1)))`` (jax's "low"
     mode), and ``categorical``: the argmax of gumbel noise plus logits (jax's
     ``replace=True`` branch).
@@ -156,11 +162,17 @@ def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def uniform(key: torch.Tensor, shape, minval=0., maxval=1.) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top 23
-    bits of each word as a mantissa under exponent 0, minus 1, then
-    ``max(minval, floats * (maxval - minval) + minval)`` in float32.  At the
-    default range that expression is the identity, so it is skipped."""
+def uniform(key: torch.Tensor, shape, minval=0., maxval=1.,
+            dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` for float32
+    or bfloat16: the top mantissa bits of each word under exponent 0, minus
+    1, then ``max(minval, floats * (maxval - minval) + minval)`` in
+    ``dtype``.  At the default range that expression is the identity, so it
+    is skipped."""
+    if dtype == torch.bfloat16:
+        return _uniform_bf16(key, shape, minval, maxval)
+    if dtype != torch.float32:
+        raise NotImplementedError(f"uniform in {dtype}")
     words = _bits32(key, shape)
     f = (words >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     floats = f.view(torch.float32) - 1.0
@@ -169,6 +181,28 @@ def uniform(key: torch.Tensor, shape, minval=0., maxval=1.) -> torch.Tensor:
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def _uniform_bf16(key: torch.Tensor, shape, minval, maxval):
+    """The bfloat16 uniform.  jax draws ``rng_bits = 8`` where a type has
+    fewer than 8 mantissa bits: the low byte of each 32-bit word (a
+    narrowing of ``bits1 ^ bits2``), its top 7 bits the mantissa.  XLA
+    evaluates each bfloat16 operation in float32 and rounds its result,
+    which the port spells out: the span ``maxval - minval``, the product
+    and the sum are each rounded to bfloat16."""
+    bf16 = torch.bfloat16
+    byte = _bits32(key, shape).bitwise_and_(0xFF)
+    f = (byte >> 1).bitwise_or_(0x3F80).to(torch.int16).view(bf16)
+    floats = (f.to(torch.float32) - 1.0).to(bf16)
+    if minval == 0. and maxval == 1.:
+        return floats
+    dev = key.device
+    lo = torch.full((), minval, dtype=bf16, device=dev).to(torch.float32)
+    hi = torch.full((), maxval, dtype=bf16, device=dev).to(torch.float32)
+    span = (hi - lo).to(bf16).to(torch.float32)
+    y = (floats.to(torch.float32) * span).to(bf16).to(torch.float32)
+    y = (y + lo).to(bf16)
+    return torch.maximum(lo.to(bf16), y)
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
@@ -262,11 +296,22 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * inf, p * x)
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) * erfinv(u)``,
-    ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
-    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
-    u = uniform(key, shape, lo, 1.)
-    sqrt2 = torch.full((), float(np.float32(np.sqrt(2))), dtype=torch.float32,
-                       device=key.device)
-    return sqrt2 * erfinv(u)
+def normal(key: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for float32 or bfloat16:
+    ``sqrt(2) * erfinv(u)``, ``u`` uniform in ``[nextafter(-1, 0), 1)``
+    (``nextafter(-1, 0)`` is -1 plus half the type's epsilon)."""
+    lo = -1.0 + torch.finfo(dtype).eps / 2
+    return _normal_from_uniform(uniform(key, shape, lo, 1., dtype))
+
+
+def _normal_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The last two steps of ``normal`` on a uniform draw ``u`` (float32 or
+    bfloat16): ``sqrt(2) * erf_inv(u)`` in ``u``'s dtype.  In bfloat16 XLA
+    evaluates ``erf_inv`` in float32 and rounds it, then rounds the
+    product with ``sqrt(2)`` rounded to bfloat16."""
+    sqrt2 = torch.full((), float(np.sqrt(2)), dtype=u.dtype,
+                       device=u.device).to(torch.float32)
+    e = erfinv(u.to(torch.float32))
+    if u.dtype == torch.bfloat16:
+        e = e.to(torch.bfloat16).to(torch.float32)
+    return (sqrt2 * e).to(u.dtype)

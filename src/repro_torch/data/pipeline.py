@@ -10,6 +10,9 @@ Counterpart of ``repro.data.pipeline``, drawn through the port's
     stores only ``{"step": N}``).  Tokens are bitwise the reference's
     (``randint`` and ``bernoulli`` are), as int64, torch's index type (the
     reference's are int32).
+  * The vision and encoder-decoder families' inputs, ``patch_embeds``
+    and ``frames``: ``prng.normal`` draws in bfloat16 by default, bitwise
+    the reference's.
   * Vision set: class-conditional procedural images, a fixed random
     template per class plus Gaussian noise: the labels bitwise, the images
     within ``prng.normal``'s ulp bound.
@@ -54,22 +57,34 @@ def lm_batch(cfg: DataConfig, vocab: int, batch: int, seq: int, step: int,
 
 
 def make_batch(model_cfg, shape, step: int, data_cfg: DataConfig | None = None,
-               process_index: int = 0, process_count: int = 1, device=None):
-    """The batch dict of a (ModelConfig, ShapeConfig) cell: ``{"tokens"}``.
-    The vision and encoder-decoder families' training inputs are not
-    ported yet: the reference draws their ``patch_embeds`` and ``frames``
-    with ``jax.random.normal`` in bfloat16, which is not the float32 draw
-    cast to bfloat16, and the port's ``prng.normal`` has no bfloat16 path
-    (ROADMAP.md, queue A)."""
-    if model_cfg.frontend or model_cfg.enc_dec:
-        raise NotImplementedError(
-            f"{model_cfg.frontend or 'encoder'} training inputs need a "
-            "bfloat16 prng.normal to match the reference's draws "
-            "(ROADMAP.md, queue A)")
+               process_index: int = 0, process_count: int = 1,
+               compute_dtype=torch.bfloat16, device=None):
+    """The batch dict of a (ModelConfig, ShapeConfig) cell, drawn on
+    ``device`` (default the GPU): ``tokens``, and for the vision family
+    ``patch_embeds`` (B / process_count, n_frontend_tokens, d_model) in
+    front of ``seq_len - n_frontend_tokens`` tokens, for an encoder-decoder
+    ``frames`` (B / process_count, seq_len, d_model).  Both are
+    ``normal`` draws in ``compute_dtype`` (bfloat16 by default, as the
+    reference's, whatever the model computes in) from
+    ``fold_in(PRNGKey(seed + 7), step)`` folded with 1 and 2; as the
+    reference's, they are not folded with ``process_index``."""
     d = data_cfg or DataConfig()
-    return {"tokens": lm_batch(d, model_cfg.vocab, shape.global_batch,
-                               shape.seq_len, step, process_index,
-                               process_count, device)}
+    dev = _device.resolve(device)
+    B, S = shape.global_batch, shape.seq_len
+    n_front = (model_cfg.n_frontend_tokens
+               if model_cfg.frontend == "vision" else 0)
+    batch = {"tokens": lm_batch(d, model_cfg.vocab, B, S - n_front, step,
+                                process_index, process_count, dev)}
+    key = prng.fold_in(prng.PRNGKey(d.seed + 7, dev), step)
+    if model_cfg.frontend == "vision":
+        batch["patch_embeds"] = prng.normal(
+            prng.fold_in(key, 1),
+            (B // process_count, n_front, model_cfg.d_model), compute_dtype)
+    if model_cfg.enc_dec:
+        batch["frames"] = prng.normal(
+            prng.fold_in(key, 2), (B // process_count, S, model_cfg.d_model),
+            compute_dtype)
+    return batch
 
 
 def vision_batch(key: torch.Tensor, n: int, n_classes: int = 8,
@@ -85,8 +100,8 @@ def vision_batch(key: torch.Tensor, n: int, n_classes: int = 8,
 
 
 class LMIterator:
-    """Stateful, checkpointable iterator over ``make_batch``: its state is
-    the next step."""
+    """Stateful, checkpointable iterator over ``make_batch`` (its default
+    ``compute_dtype``, as the reference's): its state is the next step."""
 
     def __init__(self, model_cfg, shape, data_cfg: DataConfig | None = None,
                  start_step: int = 0, device=None):

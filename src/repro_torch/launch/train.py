@@ -4,7 +4,10 @@
       --shape train_4k [--steps N] [--ckpt DIR] [--smoke] [--device cpu]
 
 Counterpart of ``repro.launch.train`` on one device: ``--smoke`` trains the
-reduced config at a tiny shape; ``--device`` is ``cuda`` unless ``cpu`` is
+reduced config at a tiny shape (64 positions, 8 rows), any architecture the
+port registers, with its ``RUN``'s grad_accum and Adam dtype; the vision
+and encoder-decoder families draw their ``patch_embeds`` / ``frames`` in
+bfloat16 (``make_batch``); ``--device`` is ``cuda`` unless ``cpu`` is
 asked.  The reference's ``--multi-pod`` and ``--distributed`` come with the
 port's parallel layer (ROADMAP.md, queue A, item 6).
 """

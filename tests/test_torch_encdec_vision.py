@@ -351,13 +351,3 @@ def test_init_cache_cross_rows():
                 assert tuple(g.shape) == w.shape
                 assert str(g.dtype).split(".")[1] == str(w.dtype)
 
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_make_batch_says_why(arch):
-    """Training batches of these families wait for a bfloat16
-    ``prng.normal`` (the reference draws its frames and patches in bf16)."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import make_batch
-    _, _, tm, _ = _models(arch)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        make_batch(tm.cfg, ShapeConfig("s", "train", 16, 2), 0, device="cpu")
