@@ -154,6 +154,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -266,6 +267,17 @@ FAM_PROMPTS = (8, 16, 24, 32, 40, 48)
 FAM_FRAMES = 96
 FAM_SCHED_FRAMES = (40, 48, 16, 24, 32, 20)
 FAM_SCHED_BUCKETS = {"paligemma-3b": (32, 64)}
+# the mesh phase: the parallel layer on a one-rank NCCL mesh (data, model)
+# = (1, 1): full-width danube at all 24 layers through Engine(mesh=) (the
+# scan, and a python loop of 2 new tokens whose every fused_decode launch
+# is counted and held to fused_ref), the Scheduler at SCHED_LAYERS, qwen3-
+# moe at its FAMILIES depth through the expert-parallel branch, one clean
+# and one FAT train step at full width and 8 of the 24 layers, and the
+# training launcher under torch.distributed.run
+MESH = dict(layers=24, checked_new=2, train_layers=8, moe_arch=
+            "qwen3-moe-235b-a22b", torchrun_timeout=300,
+            replay_order=("meshless", "mesh", "mesh", "meshless",
+                          "meshless", "mesh"))
 # published parameter counts (tests/test_models_smoke.py; the backbones)
 PUBLISHED_PARAMS = {"paligemma-3b": 2.5e9, "seamless-m4t-medium": 0.7e9}
 # VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
@@ -2587,6 +2599,239 @@ def phase_dse(torch):
                 evaluations=evals)
 
 
+def phase_mesh(torch, ms):
+    """The parallel layer on the card: a one-rank NCCL process group and
+    its (1, 1) ('data', 'model') DeviceMesh (``make_local_mesh``), whose
+    collectives run as on any mesh (gathers of the heads and of the rows,
+    the MoE's sum; in training, of every parameter), on the whole model:
+
+      * full-width danube at all 24 layers, B = 4, prompt 64, NEW new
+        tokens under crt3 at BER 1e-4, fused: Engine(mesh=) through the
+        scan (its decode step a CUDA graph holding the NCCL collectives)
+        gives the meshless Engine's tokens, and the two decode steps'
+        replays are timed in alternating windows; then Engine(mesh=,
+        loop="python") over the first MESH["checked_new"] tokens, its
+        fused_decode launches counted from 0 and each held bitwise to
+        fused_ref, gives their first tokens;
+      * the scheduler phases' 8 requests through Scheduler(mesh=) at
+        SCHED_LAYERS (``ms``), the graphed chunk, equal to the meshless
+        Scheduler's;
+      * qwen3-moe-235b-a22b at its FAMILIES depth (all 128 experts)
+        through the expert-parallel branch, equal to the meshless Engine;
+      * one clean and one FAT train step (crt3 at BER 1e-4, fused) of
+        full-width danube at MESH["train_layers"] layers from the state's
+        shards, against the meshless step: the state (params, m, v), the
+        loss and the clip norm bitwise;
+      * ``python -m torch.distributed.run --standalone --nproc-per-node 1
+        -m repro_torch.launch.train --arch h2o-danube-1.8b --smoke
+        --distributed --steps 2`` as a subprocess under a timeout.
+
+    Emits the seconds, the collectives' count and peak memory beside the
+    meshless runs'; returns the counted launches and their ms."""
+    import os
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_run_config
+    from repro_torch.kernels.fused_decode import kernel
+    from repro_torch.kernels.fused_decode import ops as fops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import ctx as pctx
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
+    from repro_torch.train import (init_state, make_train_step, shard_state,
+                                   state_shardings, unshard_state)
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh()
+    out = {"phase": "mesh", "mesh": {"data": 1, "model": 1},
+           "backend": dist.get_backend()}
+
+    def collectives():
+        return dict(pctx.COLLECTIVES)
+
+    def run(label, fn):
+        """fn's result, its seconds, peak memory (and the memory held
+        before it) and collectives."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pctx.COLLECTIVES.clear()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[label] = dict(s=time.perf_counter() - t0,
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          base_bytes=base, collectives=collectives())
+        return res
+
+    # ---- danube at 24 layers: the scan, then a checked python loop
+    m = full_model(torch, MESH["layers"])
+    cfg, model, params, batch, policy = (m[k] for k in (
+        "cfg", "model", "params", "batch", "policy"))
+    scfg = ServeConfig(max_new_tokens=NEW)
+
+    def engine(**kw):
+        return Engine(model, params, cfg=scfg, policy=policy,
+                      ft_backend="fused", **kw)
+    engines = {"meshless": engine(), "mesh": engine(mesh=mesh)}
+    ref = run("engine_meshless",
+              lambda: engines["meshless"].generate(batch, seed=0))
+    toks = run("engine_mesh", lambda: engines["mesh"].generate(batch, seed=0))
+    if not torch.equal(toks, ref):
+        raise AssertionError(f"mesh Engine tokens differ:\n{toks.cpu()}\n"
+                             f"{ref.cpu()}")
+    # the two decode steps' replays in alternating windows (ABBAAB), each
+    # the median of 5 replays' event ms (step index 0 again before each)
+    windows = {"meshless": [], "mesh": []}
+    for name in MESH["replay_order"]:
+        st = engines[name]._scan_step
+        ev, _ = _replay_times(torch, st.graph, st.i.zero_)
+        windows[name].append(sorted(ev)[len(ev) // 2])
+    out["replay_event_ms_windows"] = windows
+    del engines
+    seen = collections.Counter()
+    real, checked = _checked_fused_decode(torch, seen)
+    n = MESH["checked_new"]
+    fops.fused_decode = checked
+    try:
+        timer = LaunchTimer(torch, kernel._lib(), "fused_decode")
+        real_lib = kernel._lib
+        kernel._lib = lambda: timer
+        kernel.fused_decode.launches = 0      # the mesh path's run
+        first = run("engine_mesh_checked", lambda: engine(
+            mesh=mesh, loop="python").generate(batch, n, seed=0))
+        launches = kernel.fused_decode.launches   # ... ends here
+    finally:
+        fops.fused_decode = real
+        kernel._lib = real_lib
+    kernel_ms = timer.ms()
+    want = 7 * cfg.n_layers * (1 + n)
+    if not launches == sum(seen.values()) == want:
+        raise AssertionError(f"{launches} launches, {sum(seen.values())} "
+                             f"checked, {want} expected")
+    if not torch.equal(first, ref[:, :n]):
+        raise AssertionError("checked mesh tokens differ")
+    out.update(arch=cfg.name, layers=cfg.n_layers, batch=B, prompt=PROMPT,
+               new_tokens=NEW, policy="crt3", ber=1e-4, tokens_equal=True,
+               fused_decode_launches=launches, checked_launches=launches,
+               fused_decode_ms=kernel_ms,
+               checked_shapes={" ".join(map(str, k)): v
+                               for k, v in sorted(seen.items())})
+    del m, model, params
+    torch.cuda.empty_cache()
+
+    # ---- the Scheduler at SCHED_LAYERS
+    spec = scheduler_workload(ms["cfg"].vocab)
+
+    def serve(**kw):
+        sched = Scheduler(ms["model"], ms["params"], SchedulerConfig(**SCHED),
+                          policy=ms["policy"], ft_backend="fused", **kw)
+        res = sched.run([Request(rid=r, tokens=list(t), max_new_tokens=k)
+                         for r, t, k in spec])
+        return {r: q.generated for r, q in res.items()}
+    want_s = run("scheduler_meshless", serve)
+    got_s = run("scheduler_mesh", lambda: serve(mesh=mesh))
+    if got_s != want_s:
+        raise AssertionError(f"mesh Scheduler tokens differ: {got_s} "
+                             f"{want_s}")
+    out.update(scheduler_layers=SCHED_LAYERS, scheduler_requests=len(spec),
+               scheduler_tokens_equal=True)
+
+    # ---- qwen3-moe through the expert-parallel branch
+    arch = MESH["moe_arch"]
+    fcfg = family_config(arch)
+    fmodel = build(fcfg, get_run_config(arch))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    fparams = fmodel.init(g, device=dev)
+    fbatch = {"tokens": torch.randint(0, fcfg.vocab, (FAM["batch"],
+                                                      FAM["prompt"]),
+                                      generator=g, device=dev)}
+
+    def moe(**kw):
+        return Engine(fmodel, fparams, cfg=ServeConfig(
+            max_new_tokens=FAM["new"]), policy=policy, ft_backend="fused",
+            **kw).generate(fbatch, seed=0)
+    want_m = run("moe_meshless", moe)
+    got_m = run("moe_mesh", lambda: moe(mesh=mesh))
+    if not torch.equal(got_m, want_m):
+        raise AssertionError("mesh MoE tokens differ")
+    out.update(moe_arch=arch, moe_layers=fcfg.n_layers,
+               moe_experts=fcfg.moe.n_experts, moe_tokens_equal=True)
+    del fmodel, fparams
+    torch.cuda.empty_cache()
+
+    # ---- a clean and a FAT train step from the state's shards
+    tcfg = dataclasses.replace(get_config("h2o-danube-1.8b"),
+                               n_layers=MESH["train_layers"])
+    run_cfg = get_run_config("h2o-danube-1.8b")
+    tmodel = build(tcfg, run_cfg)
+    opt = AdamWConfig(dtype=run_cfg.adam_dtype)
+    tg = torch.Generator(device=dev).manual_seed(1)
+    state0 = init_state(tmodel, tg, opt, device=dev)
+    tbatch = {"tokens": torch.randint(0, tcfg.vocab, (TRAIN["batch"],
+                                                      TRAIN["seq"]),
+                                      generator=tg, device=dev)}
+    specs = state_shardings(state0, mesh)
+    # a first step builds cuBLAS's state: untimed
+    make_train_step(tmodel, opt)(tree.tree_map(torch.clone, state0), tbatch)
+    train = {}
+    for kind, fat in (("clean", {}), ("fat", dict(
+            policy=TRAIN["policy"], ft_ber=TRAIN["ber"],
+            ft_backend="fused"))):
+        copy = tree.tree_map(torch.clone, state0)
+        s1, met1 = run(f"train_{kind}_meshless", lambda: make_train_step(
+            tmodel, opt, **fat)(copy, tbatch))
+        shards = shard_state(tree.tree_map(torch.clone, state0), mesh, specs)
+        s2, met2 = run(f"train_{kind}_mesh", lambda: make_train_step(
+            tmodel, opt, mesh=mesh, **fat)(shards, tbatch))
+        s2 = unshard_state(s2, specs, mesh)
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(tree.leaves(s1), tree.leaves(s2)))
+        train[kind] = dict(loss_meshless=float(met1["loss"]),
+                           loss_mesh=float(met2["loss"]),
+                           grad_norm_meshless=float(met1["grad_norm"]),
+                           grad_norm_mesh=float(met2["grad_norm"]),
+                           max_abs_state_diff=diff,
+                           bitwise=all(torch.equal(a, b) for a, b in zip(
+                               tree.leaves(s1), tree.leaves(s2))))
+        # one rank: every collective is the identity, so params, m, v, the
+        # loss and the clip norm are the meshless step's bit for bit
+        if not (math.isfinite(train[kind]["loss_mesh"])
+                and train[kind]["bitwise"]
+                and torch.equal(met1["loss"], met2["loss"])
+                and torch.equal(met1["grad_norm"], met2["grad_norm"])):
+            raise AssertionError(f"mesh {kind} train step: {train[kind]}")
+        del s1, s2, shards, copy
+    out.update(train_layers=tcfg.n_layers, train=train)
+    del state0, tmodel
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # ---- the training launcher under torch.distributed.run
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--arch", "h2o-danube-1.8b", "--smoke", "--distributed",
+           "--steps", "2", "--ckpt", str(ROOT / "build" / "mesh_ckpt")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=MESH["torchrun_timeout"])
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode or "finished at step 2" not in last:
+        raise AssertionError(f"torchrun launcher: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out.update(torchrun_s=time.perf_counter() - t0, torchrun_last=last,
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    per_shape = collections.Counter()
+    for (M, K, N, _), v in seen.items():
+        per_shape[(M, K, N)] += v
+    return dict(launches=launches, ms=kernel_ms, per_shape=per_shape)
+
+
 def _state_equal(torch, a, b):
     """Names of the leaves of two train states that differ (bitwise)."""
     from repro_torch.tree import items
@@ -3143,10 +3388,10 @@ def _totals(rows, weight):
 
 
 def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
-                 sched, dse, train, families):
+                 sched, dse, train, families, mesh):
     """One entry for each of the port's four kernels; fused_decode's also
-    holds its scheduler path's run, its DSE path's, its training paths'
-    and the families phase's."""
+    holds its scheduler path's run, its DSE path's, its training paths',
+    the families phase's and the mesh phase's."""
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     rep = "src/repro/kernels/{0}/kernel.py:{1}"
     common = dict(route="cuda", device=name, nvidia_smi=smi)
@@ -3269,6 +3514,18 @@ def kernels_line(name, smi, fused, dla, dla_err, pallas, entry, entry_bound,
             "events around each launch; plain, bound, library and "
             "kernel-phase sums from the kernel phase's train-family rows x "
             "launches"))
+    mesh_rows = [r for r in rows if tuple(r["shape"]) in mesh["per_shape"]]
+    tot = _totals(mesh_rows, lambda r: mesh["per_shape"][tuple(r["shape"])])
+    out[0].update(
+        mesh_launches=mesh["launches"], mesh_ms=mesh["ms"],
+        **{f"mesh_{k}": v for k, v in tot.items()},
+        mesh_per=(f"the mesh phase's checked run: Engine(mesh=, "
+                  f"loop='python') on a one-rank NCCL (1, 1) mesh, danube "
+                  f"at {MESH['layers']} layers, B={B}, prompt {PROMPT}, "
+                  f"{MESH['checked_new']} new tokens, every launch held to "
+                  "fused_ref: ms from CUDA events around each launch; "
+                  "plain, bound, library and kernel-phase sums from the "
+                  "kernel phase's rows x launches"))
     launches, ms = pallas
     out.append(dict(
         name="protected_mm", source=src.format("protected_mm"),
@@ -3337,6 +3594,7 @@ def main() -> int:
     ms = full_model(torch, SCHED_LAYERS)
     sched = run(phase_scheduler, ms)
     run(phase_graph_scheduler, ms, sched)
+    mesh = run(phase_mesh, ms)
     del ms
     torch.cuda.empty_cache()
     families = run(phase_families)
@@ -3349,7 +3607,7 @@ def main() -> int:
                                   fused["launches"], fused["ms"]), dla,
                       dla_err, (pallas["launches"], pallas["ms"]), entry,
                       entry_bound, sched, dse, train,
-                      (fam_rows, families)))
+                      (fam_rows, families), mesh))
     print("chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

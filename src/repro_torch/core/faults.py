@@ -42,6 +42,19 @@ def fold_stream(key: torch.Tensor, *indices) -> torch.Tensor:
     return key
 
 
+def fold_axis_index(key: torch.Tensor, mesh, *axis_names) -> torch.Tensor:
+    """Per-shard key stream: fold this rank's coordinate along each named
+    dim of ``mesh`` (a DeviceMesh) into ``key``, in the order given, so
+    shard ``s`` of one dim draws from ``fold_stream(key, s)`` and a host
+    loop over the shards reproduces any shard's stream.  Draws of whole
+    tensors need none: the counter-based stream is the same on every
+    partition; a draw over a rank's own block of work (its buffers, not a
+    block of a whole tensor) does."""
+    for ax in axis_names:
+        key = prng.fold_in(key, int(mesh.get_local_rank(ax)))
+    return key
+
+
 def _thresholds(ber, r, planes, device):
     """float32 threshold of each drawn plane: ``ber`` for raw planes, the
     residual rate for TMR-voted ones (odd split indices).  Built on the

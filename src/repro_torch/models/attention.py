@@ -22,12 +22,27 @@ with RoPE (``causal = not cross``).
 The decode step writes the new token into the cache in place (the reference
 donates its cache buffers, so it too reuses them); callers hand the caches
 on and do not read the old ones.
+
+Under a mesh context (``repro_torch.parallel.ctx``) the heads are split over
+'model': q, k and v are projected whole (a protected projection needs its
+whole operands), then each rank keeps its block of kv heads and the query
+heads that read them (``ac``), attends over them alone, with its caches
+holding those kv heads only, and gathers the heads back before ``wo``. Each
+head's attention is the meshless one, so the split is bitwise.  Where the kv
+heads do not divide the axis (multi-query models), the reference splits the
+cache length over 'model' (split-K attention, which is not bitwise); the
+port runs such attention whole on every 'model' rank and keeps its caches
+whole over the axis (``parallel.sharding.cache_shardings``).  A paged pool is
+replicated over the dp axes (block tables hold global ids), so a decode step
+writes every dp rank's new rows into every copy.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import dense_init, linear, rope, softcap
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.ctx import ac
 
 NEG = -1e30
 
@@ -148,7 +163,12 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
         v = v.reshape(*x.shape[:-1], KH, Dh)
         k = rope(k, positions, cfg.rope_theta)
         q = rope(q, positions, cfg.rope_theta)
+        if heads_split(cfg):
+            k = ac(k, "dp", None, "tp", None)
+            v = ac(v, "dp", None, "tp", None)
     q = (q * _scale(cfg)).to(x.dtype)
+    if heads_split(cfg):
+        q = ac(q, "dp", None, "tp", None)
 
     new_cache = None
     if mode == "decode" and cross:
@@ -168,10 +188,16 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
         slot = pos % window if window else torch.clamp(pos, max=eff_cap - 1)
         rows = torch.arange(B, device=x.device)
         fi = bt[rows, slot // bs].long() * bs + slot % bs        # (B,)
-        kp = pool_k.view(P * bs, KH, Dh)
-        vp = pool_v.view(P * bs, KH, Dh)
-        kp[fi] = k[:, 0].to(kp.dtype)
-        vp[fi] = v[:, 0].to(vp.dtype)
+        kp = pool_k.view(P * bs, *pool_k.shape[2:])
+        vp = pool_v.view(P * bs, *pool_v.shape[2:])
+        fi_all, k_new, v_new = fi, k[:, 0], v[:, 0]
+        ctx = pctx.get_ctx()
+        if ctx is not None and ctx.rows:
+            # the pool is replicated over dp: every copy takes every row
+            fi_all, k_new, v_new = (pctx.all_gather(ctx, t, 0, "dp")
+                                    for t in (fi, k_new, v_new))
+        kp[fi_all] = k_new.to(kp.dtype)
+        vp[fi_all] = v_new.to(vp.dtype)
         new_cache = {"k": pool_k, "v": pool_v, "bt": bt}
         # gather each row's blocks back into slot order and run the dense
         # layout's count-masked attention
@@ -196,9 +222,20 @@ def apply(p, x, *, cfg, run, kind, positions, ftc=None, name="attn",
                               cap=cfg.attn_softcap, block=run.attn_block)
         if mode == "prefill" and not cross:
             new_cache = _build_cache(k, v, window)
+    if heads_split(cfg):
+        o = pctx.gather(o, 2, "tp")
     y = linear(o.reshape(*x.shape[:-1], H * Dh), p["wo"], ftc=ftc,
                name=f"{name}/wo")
     return y, new_cache
+
+
+def heads_split(cfg) -> bool:
+    """Whether attention runs on this rank's block of heads: under a mesh
+    context whose 'model' axis divides the kv heads."""
+    ctx = pctx.get_ctx()
+    if ctx is None:
+        return False
+    return cfg.n_kv_heads % ctx.tp_size == 0
 
 
 def _decode_attn(q, kc, vc, n_valid, cap=0.0):

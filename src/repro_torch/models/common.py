@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.parallel import ctx as pctx
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -150,7 +151,15 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
     """Every projection routes through here: the clean matmul, its cost
     emulation (``EmuCtx``), or, under a policy, ``protect_linear`` (or
     ``protect_linear_ste``) on float32 operands with the result cast back
-    to the compute dtype (the reference's order)."""
+    to the compute dtype (the reference's order).
+
+    Under a mesh context whose batch rows are split over the dp axes, a
+    protected projection under one key takes the whole batch's rows
+    (``gather_rows``) and keeps this rank's rows of the result: its
+    activation scale, truncation LSB and fault draws span the whole
+    ``(M, K)`` input, so the rank computes what the meshless call
+    computes.  Per-row keys make all three row-local: those rows stay
+    split."""
     if isinstance(ftc, EmuCtx):
         w2 = w.reshape(w.shape[0], -1)
         y = x @ w2
@@ -173,6 +182,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
         prot = (ftc.protected_layers is None
                 or name.split("/")[0] in ftc.protected_layers)
         sk = ftc.site_key(name)
+        whole = sk.dim() == 1
+        if whole:
+            x = pctx.gather_rows(x)
         if sk.dim() == 2:
             # per-row streams: x flattens to (B*S, K) row-major, so each
             # row key repeats over that row's S positions
@@ -185,6 +197,8 @@ def linear(x: torch.Tensor, w: torch.Tensor, b=None, *,
                layer_protected=prot, backend=ftc.backend, t=ftc.site_t(name),
                dyn=ftc.dyn)
         y = y.reshape(*x.shape[:-1], *w.shape[1:]).to(x.dtype)
+        if whole:
+            y = pctx.local_rows(y)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -1,6 +1,5 @@
-"""Mixture-of-Experts FFN.  Counterpart of ``repro.models.moe``, its
-meshless branch (expert parallelism over a mesh waits for the parallel
-slice, ROADMAP.md queue A item 6).
+"""Mixture-of-Experts FFN with partial-sum expert parallelism.
+Counterpart of ``repro.models.moe``.
 
 The router is the one protected site: it runs through ``common.linear``
 on float32 operands (``x`` cast to float32, float32 router weights), so
@@ -14,12 +13,27 @@ slot-to-token table with the sentinel row ``n_slots``, and a return path
 that adds the ``top_k`` gathers one at a time in the compute dtype.  Every
 shape is static and nothing syncs with the host, so a decode step that
 holds an MoE layer captures as one CUDA graph.
+
+Expert parallelism, under a mesh context (``repro_torch.parallel.ctx``),
+as the reference's shard_map region: the experts live on the 'model' axis
+(each rank holds ``n_experts / tp`` of them, ``parallel.sharding.
+keep_experts``), the tokens are the rank's dp rows, replicated over
+'model'.  Each rank routes its rows, keeps the assignments that hit its
+own experts (``e0 = rank * E / tp``), runs them on buffers of the capacity
+its local token count gives, and the partial outputs are summed over
+'model' (``psum``, the one collective).  A batch the dp axes do not split
+runs the whole block on every rank with the experts gathered, as the
+reference's replicated branch.  The router stays outside, under the fault
+layer, row-local.  The capacity is per shard, so the routed sets equal the
+meshless ones only with room for every assignment (``capacity_factor``
+high enough: 8 in the tests).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import activation, dense_init, linear
+from repro_torch.parallel import ctx as pctx
 
 
 def init(generator, cfg, dtype, device):
@@ -77,10 +91,12 @@ def _route(logits, *, e0, E_local, top_k, capacity):
 
 
 def _local_moe(x, logits, wi, wg, wo, *, e0, n_experts, top_k, capacity,
-               act_name):
+               act_name, tp_axis=None):
     """MoE over the experts ``[e0, e0 + E_local)`` held here.  x: (B, S,
-    D); logits: (B, S, E), the router's.  Returns (y (B, S, D), the
-    Switch load-balance loss (1,))."""
+    D); logits: (B, S, E), the router's.  With ``tp_axis`` the output is
+    this rank's part, summed over the axis (each rank's inputs feed only
+    its experts, so their gradients sum over it too).  Returns (y (B, S,
+    D), the Switch load-balance loss (1,))."""
     B, S, D = x.shape
     E_local = wi.shape[0]
     T = B * S
@@ -90,6 +106,8 @@ def _local_moe(x, logits, wi, wg, wo, *, e0, n_experts, top_k, capacity,
     r = _route(logits.reshape(T, -1), e0=e0, E_local=E_local, top_k=top_k,
                capacity=capacity)
     probs, topw, topi, slot = r["probs"], r["topw"], r["topi"], r["slot"]
+    if tp_axis is not None:
+        x2, topw = pctx.tp_copy(x2, tp_axis), pctx.tp_copy(topw, tp_axis)
 
     # slot -> token table; every dropped assignment writes the sentinel
     # row n_slots, which the buffer never reads
@@ -117,6 +135,8 @@ def _local_moe(x, logits, wi, wg, wo, *, e0, n_experts, top_k, capacity,
     out = torch.zeros((T, D), dtype=y.dtype, device=dev)
     for kk in range(top_k):
         out = out + y[slot_of[:, kk]] * topw[:, kk, None].to(y.dtype)
+    if tp_axis is not None:
+        out = pctx.psum(out, tp_axis)
 
     # Switch-style load-balance loss
     # (one_hot reads its input's range on the host; a comparison does not)
@@ -127,19 +147,28 @@ def _local_moe(x, logits, wi, wg, wo, *, e0, n_experts, top_k, capacity,
     return out.reshape(B, S, D), lb.reshape(1)
 
 
-def apply(p, x, cfg, ftc=None, name="moe", mesh=None):
-    """Returns (y, aux_loss_scalar)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh is not ported (ROADMAP.md, "
-            "queue A item 6)")
+def apply(p, x, cfg, ftc=None, name="moe"):
+    """Returns (y, aux_loss_scalar); expert-parallel under a mesh
+    context."""
     m = cfg.moe
+    ctx = pctx.get_ctx()
+    wi, wg, wo = p["wi"], p.get("wg"), p["wo"]
     # the router under the fault layer, on float32 operands
     logits = linear(x.to(torch.float32), p["router"], ftc=ftc,
                     name=f"{name}/router")
+    one = dict(n_experts=m.n_experts, top_k=m.top_k, act_name=cfg.act)
     T = x.shape[0] * x.shape[1]
     cap = max(int(m.capacity_factor * T * m.top_k / m.n_experts), 1)
-    y, lb = _local_moe(x, logits, p["wi"], p.get("wg"), p["wo"], e0=0,
-                       n_experts=m.n_experts, top_k=m.top_k, capacity=cap,
-                       act_name=cfg.act)
+    if ctx is not None and ctx.rows and m.n_experts % ctx.tp_size == 0:
+        # T is this rank's rows: the capacity of the local token count
+        E_local = m.n_experts // ctx.tp_size
+        y, lb = _local_moe(x, logits, wi, wg, wo,
+                           e0=ctx.coord(ctx.tp) * E_local, capacity=cap,
+                           tp_axis="tp", **one)
+        return y, m.aux_coef * lb.mean()
+    if ctx is not None and wi.shape[0] != m.n_experts:
+        # a batch the dp axes do not split: every rank runs the whole block
+        wi, wo = pctx.gather(wi, 0, "tp"), pctx.gather(wo, 0, "tp")
+        wg = None if wg is None else pctx.gather(wg, 0, "tp")
+    y, lb = _local_moe(x, logits, wi, wg, wo, e0=0, capacity=cap, **one)
     return y, m.aux_coef * lb.mean()

@@ -8,6 +8,12 @@ clean; the protected sites are ``w_gate``, ``w_x`` and ``w_out``.  Train
 and prefill run the recurrence as ``jax.lax.associative_scan`` does, pair
 for pair (``_recurrence``); decode is an O(1) state update, written into
 the cache in place (the decode step of a CUDA graph owns its caches).
+
+Under a mesh context whose 'model' axis divides the heads, the block runs
+on this rank's block of the width (``ac``): its conv channels, its gate
+heads, its state rows, which its caches hold; ``w_out`` takes the width
+gathered back.  Every op of the block is per channel or per head, so the
+split is bitwise.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, linear
 from repro_torch.models.ssm import _causal_conv as _conv, softplus
+from repro_torch.parallel.ctx import ac, ag
 
 C_FACTOR = 8.0
 
@@ -101,20 +108,25 @@ def apply(p, x, *, cfg, run, positions=None, ftc=None, name="rglru",
     gate = F.gelu(linear(x, p["w_gate"], ftc=ftc, name=f"{name}/w_gate"),
                   approximate="tanh")
     xb = linear(x, p["w_x"], ftc=ftc, name=f"{name}/w_x")
+    W = xb.shape[-1]
+    xb, gate = ac(xb, "dp", None, "tp"), ac(gate, "dp", None, "tp")
+    conv_w, w_a, w_i = (ac(p["conv_w"], None, "tp"), ac(p["w_a"], "tp"),
+                        ac(p["w_i"], "tp"))
+    conv_b, b_a, b_i, lam = (ac(p[k], "tp")
+                             for k in ("conv_b", "b_a", "b_i", "lam"))
 
     if mode == "decode":
         hist = torch.cat([cache["conv"], xb], dim=1)
-        xc = (torch.einsum("bkc,kc->bc", hist, p["conv_w"])
-              + p["conv_b"])[:, None, :]
+        xc = (torch.einsum("bkc,kc->bc", hist, conv_w) + conv_b)[:, None, :]
         new_conv = hist[:, 1:]
     else:
-        xc = _conv(xb, p["conv_w"], p["conv_b"])
+        xc = _conv(xb, conv_w, conv_b)
         new_conv = xb[:, -(cfg.rglru_conv - 1):]
 
-    r = torch.sigmoid(_block_diag(xc, p["w_a"]).to(f32) + p["b_a"])
-    i = torch.sigmoid(_block_diag(xc, p["w_i"]).to(f32) + p["b_i"])
+    r = torch.sigmoid(_block_diag(xc, w_a).to(f32) + b_a)
+    i = torch.sigmoid(_block_diag(xc, w_i).to(f32) + b_i)
     xf = xc.to(f32)
-    log_a = -C_FACTOR * softplus(p["lam"])[None, None, :] * r
+    log_a = -C_FACTOR * softplus(lam)[None, None, :] * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9))
     bx = beta * (i * xf)
@@ -131,4 +143,5 @@ def apply(p, x, *, cfg, run, positions=None, ftc=None, name="rglru",
                      if mode == "prefill" else cache)
 
     y = (hseq * gate.to(f32)).to(x.dtype)
-    return linear(y, p["w_out"], ftc=ftc, name=f"{name}/w_out"), new_cache
+    return linear(ag(y, -1, W), p["w_out"], ftc=ftc,
+                  name=f"{name}/w_out"), new_cache

@@ -10,6 +10,11 @@ into the cache in place (the decode step of a CUDA graph owns its caches).
 The state is float32 ``(B, H, P, N)``; the conv history holds the last
 ``conv_width - 1`` inputs in the compute dtype.  Protected sites:
 ``{name}/in_proj`` and ``{name}/out_proj``.
+
+Under a mesh context the block computes whole on every rank; its caches
+hold this rank's block of the state's heads and of the conv channels (the
+reference's cache layout), gathered whole before a decode step and cut
+again after it.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, linear, rms_norm
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.ctx import ac, ag
 
 
 def dims(cfg):
@@ -120,6 +127,10 @@ def apply(p, x, *, cfg, run, positions=None, ftc=None, name="ssd",
     z, xi, Bm, Cm, dt = _split(cfg, zxbcdt)
     conv_in = torch.cat([xi, Bm, Cm], dim=-1)
 
+    local = cache
+    if mode == "decode" and pctx.get_ctx() is not None:
+        cache = {"state": ag(cache["state"], 1, H),
+                 "conv": ag(cache["conv"], 2, conv_in.shape[-1])}
     if mode == "decode":
         hist = torch.cat([cache["conv"], conv_in], dim=1)   # (B, K, C)
         conv_out = (torch.einsum("bkc,kc->bc", hist, p["conv_w"])
@@ -143,9 +154,9 @@ def apply(p, x, *, cfg, run, positions=None, ftc=None, name="ssd",
         state = cache["state"] * dA[:, :, None, None] + upd
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].to(f32), state)
         y = y.reshape(B, 1, H, s.head_dim)
-        cache["state"].copy_(state)
-        cache["conv"].copy_(new_conv)
-        new_cache = cache
+        local["state"].copy_(ac(state, "dp", "tp", None, None))
+        local["conv"].copy_(ac(new_conv, "dp", None, "tp"))
+        new_cache = local
     else:
         S_in = xh.shape[1]
         rem = S_in % s.chunk
@@ -160,7 +171,8 @@ def apply(p, x, *, cfg, run, positions=None, ftc=None, name="ssd",
             xh_p = xh
         y, state = ssd_chunked(xh_p, dt_s, A, Bm, Cm, s.chunk)
         y = y[:, :S_in]
-        new_cache = ({"state": state, "conv": new_conv.contiguous()}
+        new_cache = ({"state": ac(state, "dp", "tp", None, None),
+                      "conv": ac(new_conv, "dp", None, "tp").contiguous()}
                      if mode == "prefill" else cache)
 
     y = y + xh.to(f32) * p["D"][None, None, :, None]

@@ -22,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, mlp, moe, rglru, ssm
 from repro_torch.models.common import (dtype_of, embed_init, linear,
                                        rms_norm, softcap)
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel.ctx import ac
 
 # the mixer of each layer kind, and its key in the layer's params and cache
 MIXERS = {"G": (attention, "attn"), "L": (attention, "attn"),
@@ -142,8 +144,11 @@ def _cross_kv(pa, enc_out, cfg, ftc, name):
     KH, Dh = cfg.n_kv_heads, cfg.d_head
     k = linear(enc_out, pa["wk"], pa.get("bk"), ftc=ftc, name=f"{name}/xk")
     v = linear(enc_out, pa["wv"], pa.get("bv"), ftc=ftc, name=f"{name}/xv")
-    return (k.reshape(*enc_out.shape[:-1], KH, Dh),
-            v.reshape(*enc_out.shape[:-1], KH, Dh))
+    k = k.reshape(*enc_out.shape[:-1], KH, Dh)
+    v = v.reshape(*enc_out.shape[:-1], KH, Dh)
+    if attention.heads_split(cfg):
+        k, v = ac(k, "dp", None, "tp", None), ac(v, "dp", None, "tp", None)
+    return k, v
 
 
 # -------------------------------------------------------------- backbone ---
@@ -154,8 +159,10 @@ def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
     layer in the backward pass instead of keeping its activations
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of a
     scanned block).  The recompute draws the same fault keys, so a faulty
-    forward recomputes bit for bit."""
+    forward recomputes bit for bit, and under the forward's mesh context
+    (the backward runs outside it)."""
     B, S, _ = x.shape
+    ctx = pctx.get_ctx()
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     train = mode == "train"
@@ -165,9 +172,11 @@ def backbone(params, x, *, cfg, run, mode, caches=None, positions=None,
         lid = f"l{i}"
         if train:
             def layer(p, h, kind=kind, name=name):
-                y, _, a = apply_layer(p, h, kind=kind, cfg=cfg, run=run,
-                                      mode=mode, positions=positions,
-                                      ftc=ftc, name=name, enc_out=enc_out)
+                with pctx.mesh_ctx(ctx):
+                    y, _, a = apply_layer(p, h, kind=kind, cfg=cfg, run=run,
+                                          mode=mode, positions=positions,
+                                          ftc=ftc, name=name,
+                                          enc_out=enc_out)
                 return y, a
             p = params["layers"][lid]
             if run.remat == "block" and torch.is_grad_enabled():
@@ -196,12 +205,14 @@ def encode(params, frames, *, cfg, run, ftc=None):
     B, T, _ = frames.shape
     positions = torch.arange(T, device=frames.device).expand(B, T)
     lctx = ftc if cfg.unroll else None
+    mctx = pctx.get_ctx()
     x = frames
     for i in range(cfg.n_enc_layers):
         def layer(p, h, name=f"enc{i}" if cfg.unroll else "enc"):
-            return apply_layer(p, h, kind="E", cfg=cfg, run=run,
-                               mode="train", positions=positions, ftc=lctx,
-                               name=name)[0]
+            with pctx.mesh_ctx(mctx):
+                return apply_layer(p, h, kind="E", cfg=cfg, run=run,
+                                   mode="train", positions=positions,
+                                   ftc=lctx, name=name)[0]
         p = params["enc_layers"][f"l{i}"]
         if run.remat == "block" and torch.is_grad_enabled():
             x = checkpoint(layer, p, x, use_reentrant=False,

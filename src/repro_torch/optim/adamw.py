@@ -53,21 +53,25 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The norm of every leaf of ``tree`` (a dict tree or a list) as one
+    vector."""
+    xs = tree if isinstance(tree, list) else leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+                          for x in xs))
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
-                 inplace: bool = False):
+                 inplace: bool = False, grad_norm=None):
     """One AdamW step.  Returns (params, {"m", "v", "step"}, {"grad_norm",
     "lr"}): new tensors (the inputs stay as they were), or with ``inplace``
     the input parameters and moments, overwritten leaf by leaf (the same
     values, with one leaf's temporaries alive at a time instead of a
-    second state)."""
+    second state).  ``grad_norm``: the clipping norm, where ``grads`` are
+    one rank's shards of the whole gradients it was taken over."""
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

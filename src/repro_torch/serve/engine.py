@@ -40,7 +40,24 @@ encoder-decoder's cross-attention keys and values, as long as its
 encoder's input; decode attends to all of them): each generation
 copies its prefill's caches into them, and a new shape frees them and
 captures a new graph, so a server holds one set whatever the prompts it
-sees.  Not ported yet (ROADMAP.md): device meshes.
+sees.
+
+Works on a mesh (``mesh=``, a ``DeviceMesh`` with dims ('data', 'model'), or
+('pod', 'data', 'model')): every rank holds the parameters whole, except a
+MoE layer's experts, which it holds cut over 'model' (expert parallelism,
+``models.moe``; ``parallel.sharding.serving_shardings``): a protected
+projection computes on whole operands (``models.common.linear``), so a
+rank that held its 'model' shards would gather them back for every call.
+The batch's rows are split over the dp axes where they divide
+(``batch_shardings``), and the caches the prefill builds are this rank's
+rows and kv heads (``cache_shardings``), as the model code under the mesh
+context makes them.  Every rank samples from the whole batch's logits
+(gathered over dp), so the tokens come back whole on every rank and a
+sampling key draws what it draws without a mesh; the tokens equal the
+meshless Engine's bit for bit.  Under the scan loop the mesh's collectives
+are captured in the step's CUDA graph with its kernels; a collective that
+cannot be captured fails the capture, which raises (no eager
+fallback).
 """
 from __future__ import annotations
 
@@ -52,6 +69,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import prng
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as S
 from repro_torch.serve.graphs import StepGraph
 
 LOOPS = ("scan", "python")
@@ -95,13 +114,15 @@ def sample_scaled(logits, key, temperature):
 class Engine:
     def __init__(self, model, params, cfg: ServeConfig | None = None,
                  policy=None, ft_backend: str = "reference", ft_t=None,
-                 loop: str | None = None):
+                 loop: str | None = None, *, mesh=None):
         """``policy``: a protection policy (or registry name) applied to
         every projection; ``ft_backend``: "reference", "fused" or "pallas".
         For "pallas", ``ft_t`` carries the calibrated truncation LSB(s): one
         int or a ``{site: int}`` table (``repro_torch.ft.calibrate_t``); a
         site without one raises, the Engine never calibrates behind the
-        caller's back.  Runs on the device the parameters are on."""
+        caller's back.  Runs on the device the parameters are on.
+        ``mesh``: a DeviceMesh to serve on (the module docstring); every
+        rank passes the same whole parameters and batches."""
         from repro_torch.ft import as_policy
         self.model, self.params = model, params
         self.cfg = cfg or ServeConfig()
@@ -112,6 +133,12 @@ class Engine:
         self.ft_backend = ft_backend
         self.ft_t = ft_t
         self.device = params["embed"].device
+        self.mesh = mesh
+        self._ctx = None if mesh is None else S.make_ctx(mesh)
+        if mesh is not None:
+            S.check_model(model.cfg, mesh)
+            self.params = S.distribute(
+                params, S.serving_shardings(params, mesh), mesh)
         self.stats = ServeStats()
         self._n_calls = 0
         self._scan_step = None       # _ScanStep of the last shape
@@ -160,31 +187,37 @@ class Engine:
         if self.model.cfg.frontend == "vision":
             prompt_len += self.model.cfg.n_frontend_tokens
         ftkey, skey = self._call_key(key, seed)
-        caches, logits = self.model.prefill(self.params, batch,
-                                            max_len=prompt_len + n_new,
-                                            ftc=self._ftc(ftkey))
-        tok = self._sample(logits, skey)
+        ctx = (None if self._ctx is None
+               else self._ctx.for_rows(batch["tokens"].shape[0]))
+        with pctx.mesh_ctx(ctx):
+            caches, logits = self.model.prefill(
+                self.params,
+                {k: pctx.local_rows(v) for k, v in batch.items()},
+                max_len=prompt_len + n_new, ftc=self._ftc(ftkey))
+            tok = self._sample(pctx.gather_rows(logits), skey)
         if n_new == 0:                       # prefill-only probe
             self.stats = ServeStats(roundtrips=1, tokens=0)
             return torch.zeros((tok.shape[0], 0), dtype=torch.int32,
                                device=self.device)
         if self.loop == "scan":
-            out = self._scan(caches, tok, prompt_len, ftkey, skey, n_new)
+            out = self._scan(caches, tok, prompt_len, ftkey, skey, n_new,
+                             ctx)
             self.stats = ServeStats(roundtrips=2, tokens=out.numel())
             return out
         out = []
-        for i in range(n_new):
-            out.append(tok)
-            caches, logits = self.model.decode_step(
-                self.params, caches, tok, prompt_len + i,
-                ftc=self._ftc(prng.fold_in(ftkey, i + 1)))
-            skey = prng.fold_in(skey, i)     # the reference's sampling stream
-            tok = self._sample(logits, skey)
+        with pctx.mesh_ctx(ctx):
+            for i in range(n_new):
+                out.append(tok)
+                caches, logits = self.model.decode_step(
+                    self.params, caches, pctx.local_rows(tok),
+                    prompt_len + i, ftc=self._ftc(prng.fold_in(ftkey, i + 1)))
+                skey = prng.fold_in(skey, i)  # the reference's sampling stream
+                tok = self._sample(pctx.gather_rows(logits), skey)
         out = torch.stack(out, dim=1)
         self.stats = ServeStats(roundtrips=1 + n_new, tokens=out.numel())
         return out
 
-    def _scan(self, caches, tok, pos0, ftkey, skey, n_new):
+    def _scan(self, caches, tok, pos0, ftkey, skey, n_new, ctx=None):
         """The scan loop: ``n_new`` runs of the decode step for these
         caches' shapes; each emits the token it consumes, so the result is
         ``[tok0, ..., tok_{n_new-1}]``, as the reference's scan."""
@@ -197,7 +230,8 @@ class Engine:
             step = self._scan_step = _ScanStep(
                 self.model, self.params, caches, tok,
                 functools.partial(ft_ctx, self.policy, backend=self.ft_backend,
-                                  t=self.ft_t), self.cfg.temperature, shapes)
+                                  t=self.ft_t), self.cfg.temperature, shapes,
+                ctx)
         step.load(caches, tok, pos0, ftkey, skey)
         out = []
         for _ in range(n_new):
@@ -214,12 +248,12 @@ class _ScanStep:
     ``pos0`` and the fault key.  Step ``i`` decodes at ``pos0 + i`` under
     ``fold_in(ftkey, i + 1)``, folds ``i`` into the sampling key and
     samples the next token, all on the device; ``graph`` runs it
-    (``serve.graphs.StepGraph``).  The step holds its buffers and no
-    Engine, so nothing here is a reference cycle and the device memory
-    goes with the Engine."""
+    (``serve.graphs.StepGraph``).  On a mesh the step runs under the mesh
+    context ``ctx``; the token buffer holds the whole batch.  The step holds its buffers and no Engine, so nothing here is a
+    reference cycle and the device memory goes with the Engine."""
 
     def __init__(self, model, params, caches, tok, ftc, temperature,
-                 shapes):
+                 shapes, ctx=None):
         dev = tok.device
         self.shapes = shapes
         self.caches = caches = tree.tree_map(torch.zeros_like, caches)
@@ -231,9 +265,11 @@ class _ScanStep:
             for _ in range(2)]
 
         def step():
-            _, logits = model.decode_step(
-                params, caches, tok, pos0 + i,
-                ftc=ftc(prng.fold_in(ftkey, i + 1)))
+            with pctx.mesh_ctx(ctx):
+                _, logits = model.decode_step(
+                    params, caches, pctx.local_rows(tok), pos0 + i,
+                    ftc=ftc(prng.fold_in(ftkey, i + 1)))
+                logits = pctx.gather_rows(logits)
             key = prng.fold_in(skey, i)
             tok.copy_(sample_scaled(logits, key, temperature))
             skey.copy_(key)

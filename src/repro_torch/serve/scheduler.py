@@ -57,7 +57,22 @@ lengths.  That needs the paged layout: the dense one has no ``cn`` (the
 reference's dense Scheduler fails on such a model), so it is refused.  A
 vision request carries ``extras={"patch_embeds": (P, D)}``: its P patch
 positions come before the prompt, in the capacity, the block count and
-every position (``_front``).  Not ported (ROADMAP.md): ``mesh=``.
+every position (``_front``).
+
+On a mesh (``mesh=``, a DeviceMesh) the parameters are held as the Engine
+holds them (whole, the MoE experts cut over 'model'); the slots
+are split over the dp axes where ``max_batch`` divides them, and the
+caches are held per ``parallel.sharding.cache_shardings``: this rank's
+slot rows and kv heads, while a paged pool stays whole over the dp axes
+(block tables hold global block ids) and splits only its kv heads over
+'model'.  Every rank runs the same host loop (admission, block allocation,
+eviction) on the same requests; a B = 1 prefill runs whole on every rank
+and its caches go into the slot's owner (its rows) and into every copy of
+the pools; a decode step runs each rank's own slots, writes every rank's
+new rows into every pool copy, and the chunk's tokens are gathered over
+dp once per chunk.  The per-request keys make every protected projection
+row-local, so the slots stay split and the tokens equal the meshless
+Scheduler's bit for bit.
 """
 from __future__ import annotations
 
@@ -71,6 +86,8 @@ import torch
 from repro_torch import tree
 from repro_torch.core import prng
 from repro_torch.models import transformer as T
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as S
 from repro_torch.serve.engine import LOOPS, ft_ctx, sample_scaled
 from repro_torch.serve.graphs import StepGraph
 
@@ -126,11 +143,10 @@ class Scheduler:
         keys need one of the two; the reference's ``ft_t`` serves only the
         pallas backend, which it refuses too).  ``loop``: "scan" replays
         the decode step as a CUDA graph on the card, "python" runs it
-        eagerly.  Runs on the device the parameters are on."""
+        eagerly.  Runs on the device the parameters are on.  ``mesh``: a
+        DeviceMesh to serve on (the module docstring); every rank passes the
+        same whole parameters and requests."""
         from repro_torch.ft import as_policy
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported (ROADMAP.md, queue A item 6)")
         if loop not in LOOPS:
             raise ValueError(f"unknown loop {loop!r}; expected {LOOPS}")
         self.loop = loop
@@ -140,6 +156,18 @@ class Scheduler:
         self.ft_backend = ft_backend
         self.device = params["embed"].device
         self.stats = SchedStats()
+        self.mesh = mesh
+        self._ctx = None
+        self._slot0, self._nloc = 0, self.cfg.max_batch
+        if mesh is not None:
+            ctx = S.make_ctx(mesh)
+            S.check_model(model.cfg, mesh)
+            self._ctx = ctx.for_rows(self.cfg.max_batch)
+            if self._ctx.rows:
+                self._nloc = self.cfg.max_batch // ctx.dp_size
+                self._slot0 = ctx.dp_coord() * self._nloc
+            self.params = S.distribute(
+                params, S.serving_shardings(params, mesh), mesh)
 
         mcfg = model.cfg
         kinds = T.layer_kinds(mcfg)
@@ -217,9 +245,11 @@ class Scheduler:
         """B = 1 prefill under the request's key ``fold(fold(ftbase, rid),
         0)``; its first token at ``tstep = -1``."""
         ftk = prng.fold_in(prng.fold_in(self._ftbase, rid), 0)
-        caches, logits = self.model.prefill(
-            self.params, batch1, max_len=self.capacity, ftc=self._ftc(ftk),
-            last_index=last_idx)
+        ctx = self._ctx and self._ctx.for_rows(1)
+        with pctx.mesh_ctx(ctx):
+            caches, logits = self.model.prefill(
+                self.params, batch1, max_len=self.capacity,
+                ftc=self._ftc(ftk), last_index=last_idx)
         rids = torch.full((1,), rid, dtype=torch.int64, device=self.device)
         tok0 = self._sample(logits, rids, torch.full_like(rids, -1))
         return caches, int(tok0[0])
@@ -239,16 +269,21 @@ class Scheduler:
         leaves are scattered through the slot's new block table; dense
         leaves (dense KV, the R and S layers' state rows) are slot-row
         writes; cross-attention rows fill the slot's first ``s1e`` (the
-        encoder input's length) positions, and ``cn[slot] = s1e``."""
+        encoder input's length) positions, and ``cn[slot] = s1e``.  On a
+        mesh every rank writes the pools; only the slot's owner its rows.
+        """
+        own = self._own(slot)
         for lid, kind in zip(caches, self._kinds):
             for key, dst in caches[lid].items():
                 new = c1[lid][key]
                 if key == "cross":
+                    if own is None:
+                        continue
                     s1e = new["ck"].shape[1]
                     for name in ("ck", "cv"):
-                        dst[name][slot, :s1e] = new[name][0].to(
+                        dst[name][own, :s1e] = new[name][0].to(
                             dst[name].dtype)
-                    dst["cn"][slot] = s1e
+                    dst["cn"][own] = s1e
                     continue
                 if "bt" in dst:
                     wdw = self._window if kind == "L" else 0
@@ -256,17 +291,26 @@ class Scheduler:
                     for name in ("k", "v"):
                         self._scatter_pool(dst[name], new[name], row, wdw,
                                            plen)
-                    dst["bt"][slot] = row
+                    if own is not None:
+                        dst["bt"][own] = row
                     continue
-                for name, buf in dst.items():
-                    buf[slot] = new[name][0].to(buf.dtype)
+                if own is not None:
+                    for name, buf in dst.items():
+                        buf[own] = new[name][0].to(buf.dtype)
+
+    def _own(self, slot):
+        """The index of ``slot`` among this rank's slot rows, or None where
+        another dp rank holds it."""
+        i = slot - self._slot0
+        return i if 0 <= i < self._nloc else None
 
     def _retire(self, caches, slot):
         """Point the evicted slot's block tables back at the trash block, so
         its row, which goes on decoding, writes nowhere a request reads."""
+        own = self._own(slot)
         for c in caches.values():
-            if "bt" in c.get("attn", {}):
-                c["attn"]["bt"][slot] = 0
+            if "bt" in c.get("attn", {}) and own is not None:
+                c["attn"]["bt"][own] = 0
 
     def _chunk(self, caches, tok, pos, tstep, rids, active):
         """``decode_chunk`` decode steps of every slot; tokens, positions
@@ -274,19 +318,23 @@ class Scheduler:
         (tok, pos, tstep) and the (B, decode_chunk) tokens, on the host."""
         if self._step is None:
             self._step = _ChunkStep(
-                self.model, self.params, caches, self.cfg.max_batch,
+                self.model, self.params, caches, self._nloc,
                 self.cfg.decode_chunk,
                 self._ftbase, functools.partial(
                     ft_ctx, self.policy, backend=self.ft_backend),
                 functools.partial(_sample_rows, sbase=self._sbase,
-                                  temperature=self.cfg.temperature))
+                                  temperature=self.cfg.temperature),
+                self._ctx)
         st = self._step
-        st.load(np.stack([tok, pos, tstep, rids, active]))
+        rows = slice(self._slot0, self._slot0 + self._nloc)
+        st.load(np.stack([tok, pos, tstep, rids, active])[:, rows])
         run = st.graph if self.loop == "scan" else st.graph.step
         for _ in range(self.cfg.decode_chunk):
             run()
-        host = torch.cat([torch.stack([st.tok, st.pos, st.tstep]),
-                          st.toks]).cpu().numpy()
+        out = torch.cat([torch.stack([st.tok, st.pos, st.tstep]), st.toks])
+        if self._ctx is not None and self._ctx.rows:
+            out = pctx.all_gather(self._ctx, out, 1, "dp")
+        host = out.cpu().numpy()
         return (host[0].astype(np.int32), host[1].astype(np.int32),
                 host[2].astype(np.int32), host[3:].T)
 
@@ -335,6 +383,10 @@ class Scheduler:
             self._caches = self.model.init_cache(
                 self.cfg.max_batch, self.capacity, device=self.device,
                 paged=paged, enc_len=enc_len)
+            if self.mesh is not None:
+                self._caches = S.distribute(
+                    self._caches, S.cache_shardings(self._caches, self.mesh),
+                    self.mesh)
         else:
             for c in tree.leaves(self._caches):
                 c.zero_()
@@ -514,12 +566,12 @@ class _ChunkStep:
     positions, step indices and request ids (int64, (B,)), the active mask,
     the row keys ``fold_in(ftbase, rid)``, the index ``j`` of the step in
     its chunk and the chunk's (decode_chunk, B) tokens; the Scheduler's
-    caches.  ``graph`` runs it (``serve.graphs.StepGraph``).  The step
-    holds its buffers and no Scheduler, so nothing here is a reference
-    cycle."""
+    caches.  ``graph`` runs it (``serve.graphs.StepGraph``).  On a mesh the
+    rows are this rank's slots, under the mesh context ``ctx``.  The step holds its
+    buffers and no Scheduler, so nothing here is a reference cycle."""
 
     def __init__(self, model, params, caches, B, decode_chunk, ftbase, ftc,
-                 sample):
+                 sample, ctx=None):
         dev = ftbase.device
         self.tok, self.pos, self.tstep, self.rids = tok, pos, tstep, rids = [
             torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -535,8 +587,9 @@ class _ChunkStep:
 
         def step():
             keys = prng.fold_in(rowkeys, tstep + 1)
-            _, logits = model.decode_step(params, caches, tok, pos,
-                                          ftc=ftc(keys))
+            with pctx.mesh_ctx(ctx):
+                _, logits = model.decode_step(params, caches, tok, pos,
+                                              ftc=ftc(keys))
             nxt = sample(logits, rids, tstep).to(torch.int64)
             toks.index_copy_(0, j.reshape(1), nxt.reshape(1, B))
             act = active.to(torch.int64)

@@ -74,10 +74,21 @@ def _flatten(tree) -> dict:
 
 
 def save(ckpt_dir: str, state, step: int, data_state: dict | None = None,
-         keep: int = 3, async_write: bool = False):
+         keep: int = 3, async_write: bool = False, shardings=None,
+         mesh=None):
     """Write the checkpoint of ``step``.  The state is copied to the host
     before this returns; with ``async_write`` the files are written by a
-    thread, whose waiter this returns (``None`` otherwise)."""
+    thread, whose waiter this returns (``None`` otherwise).
+
+    A sharded state (``mesh`` and its whole spec tree ``shardings``) is
+    gathered first, so the files hold the whole logical shapes and restore
+    onto any mesh; every rank of the mesh takes part in the gather and the
+    mesh's first rank writes."""
+    if mesh is not None:
+        from repro_torch.parallel import sharding as S
+        state = S.gather_tree(state, shardings, mesh)
+        if torch.distributed.get_rank() != int(mesh.mesh.flatten()[0]):
+            return None
     arrays = _flatten(state)
 
     def _write():
@@ -137,11 +148,14 @@ def _leaf(arr: np.ndarray, like, device) -> torch.Tensor:
     return t.to(device=device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str, like, step: int | None = None, device=None):
+def restore(ckpt_dir: str, like, step: int | None = None, device=None,
+            shardings=None, mesh=None):
     """Restore the latest (or the given) committed step into the structure
-    and dtypes of ``like`` (a tree of tensors; meta tensors will do), on
-    ``device`` (default the GPU).  Returns (state, step, data_state), or
-    (None, -1, {}) where no step is committed."""
+    and dtypes of ``like`` (a tree of tensors of the whole shapes; meta
+    tensors will do), on ``device`` (default the GPU); with ``mesh`` and
+    ``shardings`` (``like``'s spec tree) each rank keeps its shards.
+    Returns (state, step, data_state), or (None, -1, {}) where no step is
+    committed."""
     steps = available_steps(ckpt_dir)
     if not steps:
         return None, -1, {}
@@ -152,4 +166,7 @@ def restore(ckpt_dir: str, like, step: int | None = None, device=None):
         meta = json.load(f)
     with np.load(os.path.join(d, "arrays.npz")) as z:
         state = map_named(lambda name, leaf: _leaf(z[name], leaf, dev), like)
+    if mesh is not None:
+        from repro_torch.parallel import sharding as S
+        state = S.distribute(state, shardings, mesh)
     return state, step, meta.get("data_state", {})

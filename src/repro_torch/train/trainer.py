@@ -1,7 +1,7 @@
 """Training loop with step-atomic checkpoints, fault-aware training and
 straggler detection.
 
-Counterpart of ``repro.train.trainer`` on one device:
+Counterpart of ``repro.train.trainer``:
 
 - step-atomic checkpoints (async write) and resume from the latest, with
   the data iterator's state;
@@ -14,10 +14,16 @@ Counterpart of ``repro.train.trainer`` on one device:
   median of a bounded window of recent step times is logged and counted;
   after ``straggler_patience`` slow steps in a row the trainer writes a
   checkpoint.  The first step of every run (kernel builds and warm-up) is
-  kept out of the window.
-
-The elastic re-mesh (``handle_device_loss``) waits for the port's parallel
-layer (ROADMAP.md, queue A, item 6).
+  kept out of the window;
+- a mesh (``mesh=``, a DeviceMesh): every rank runs the Trainer on the same
+  data stream; the state rests in the FSDP x TP layout
+  (``train_step.state_shardings``) and checkpoints hold the whole logical
+  shapes (the mesh's first rank writes them);
+- elastic re-mesh: after (simulated) rank loss, ``handle_device_loss``
+  closes the loop: plan the rescale, form the survivors' mesh, scale
+  grad_accum to keep the global batch, restore the latest committed
+  checkpoint onto the new shardings with its data position, and hand back
+  (state, step) for ``run`` (``repro_torch.train.elastic``).
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from repro_torch.core import prng
 from repro_torch.data.pipeline import DataConfig, LMIterator
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.train.train_step import (init_state, make_train_step,
+                                         shard_state, state_shardings)
 
 
 @dataclasses.dataclass
@@ -98,16 +105,23 @@ class Trainer:
         self.delay_hook = delay_hook  # tests inject artificial stragglers
         self.data = LMIterator(model.cfg, shape, data_cfg,
                                device=self.device)
+        self.mesh = mesh
+        self._build_step()
+        self.metrics_log: list[dict] = []
+        self.straggler_events = 0
+        self._slow_streak = 0
+
+    def _build_step(self):
         c = self.cfg
         fat = {}
         if c.fat_policy is not None:
             fat = dict(policy=c.fat_policy, ft_ber=c.fat_ber,
                        ft_key=prng.PRNGKey(c.fat_seed, self.device),
                        fat_ramp=c.fat_ramp, ft_backend="fused")
-        self.step_fn = make_train_step(model, self.opt_cfg, mesh=mesh, **fat)
-        self.metrics_log: list[dict] = []
-        self.straggler_events = 0
-        self._slow_streak = 0
+        self.step_fn = make_train_step(self.model, self.opt_cfg,
+                                       mesh=self.mesh, **fat)
+        self.specs = (None if self.mesh is None
+                      else state_shardings(self.state_like(), self.mesh))
 
     # ------------------------------------------------------------ state ---
     def state_like(self) -> dict:
@@ -120,10 +134,52 @@ class Trainer:
         position restored; or a fresh state at step 0."""
         state, step, dstate = ckpt.restore(self.cfg.ckpt_dir,
                                            self.state_like(),
-                                           device=self.device)
+                                           device=self.device,
+                                           shardings=self.specs,
+                                           mesh=self.mesh)
         if state is None:
             g = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-            return init_state(self.model, g, self.opt_cfg, self.device), 0
+            state = init_state(self.model, g, self.opt_cfg, self.device)
+            if self.mesh is not None:
+                state = shard_state(state, self.mesh, self.specs)
+            return state, 0
+        self.data.restore(dstate)
+        return state, int(step)
+
+    # ---------------------------------------------------------- elastic ---
+    def handle_device_loss(self, surviving):
+        """Close the elastic loop after losing ranks: plan -> re-mesh ->
+        restore the latest committed checkpoint -> ready to continue.
+
+        ``surviving`` is the list of live global ranks (or their count: the
+        first N of the old mesh).  The global batch is preserved by scaling
+        ``grad_accum`` by the plan's factor; the step is rebuilt for the new
+        mesh (the same FAT schedule: the restored step counter keeps the
+        fault stream on its coordinate).  Returns ``(state, step)`` for
+        :meth:`run`; a rank outside the new mesh gets ``(None, step)`` and
+        leaves (``self.mesh`` is then None)."""
+        from repro_torch.train import elastic
+
+        if self.mesh is None:
+            raise ValueError("elastic rescale needs a mesh-backed trainer")
+        ranks = (list(surviving) if not isinstance(surviving, int)
+                 else elastic.simulate_device_loss(
+                     self.mesh, self.mesh.mesh.numel() - surviving))
+        model_axis = self.mesh.size(self.mesh.mesh_dim_names.index("model"))
+        plan = elastic.plan_rescale(self.mesh, len(ranks), model_axis)
+        self.mesh = elastic.survivor_mesh(plan, model_axis, ranks,
+                                          self.device.type)
+        if plan.grad_accum_scale != 1:
+            run2 = dataclasses.replace(
+                self.model.run,
+                grad_accum=self.model.run.grad_accum * plan.grad_accum_scale)
+            self.model = dataclasses.replace(self.model, run=run2)
+        if self.mesh is None:
+            return None, ckpt.available_steps(self.cfg.ckpt_dir)[-1]
+        self._build_step()
+        state, step, dstate, _ = elastic.remesh_restore(
+            self.cfg.ckpt_dir, self.state_like(), self.mesh,
+            device=self.device)
         self.data.restore(dstate)
         return state, int(step)
 
@@ -172,7 +228,8 @@ class Trainer:
                 waiter = ckpt.save(self.cfg.ckpt_dir, state, step,
                                    data_state=self.data.state(),
                                    keep=self.cfg.keep,
-                                   async_write=self.cfg.ckpt_async)
+                                   async_write=self.cfg.ckpt_async,
+                                   shardings=self.specs, mesh=self.mesh)
                 self._slow_streak = 0
         if waiter is not None:
             waiter.join()

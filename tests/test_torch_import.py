@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.configs.qwen2_7b, repro_torch.configs.glm4_9b, "
             "repro_torch.configs.gemma2_27b, repro_torch.configs.dbrx_132b, "
             "repro_torch.configs.seamless_m4t_medium, "
-            "repro_torch.configs.paligemma_3b; "
+            "repro_torch.configs.paligemma_3b, "
+            "repro_torch.parallel.ctx, repro_torch.parallel.sharding, "
+            "repro_torch.parallel.compression, repro_torch.launch.mesh, "
+            "repro_torch.train.elastic; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -248,6 +248,8 @@ def test_model_loss_adds_the_aux_term():
 
 
 def test_mesh_is_refused():
+    """A mesh is not an argument: as in the reference, apply reads it from
+    the mesh context (expert parallelism: tests/test_torch_sharded.py)."""
     _, cfg, _, p, _, x = _setup()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tmoe.apply(p, x, cfg, mesh=object())

@@ -280,7 +280,9 @@ def _guard(case):
     elif case == "pallas":
         tsched.Scheduler(tm, tp, policy=pol, ft_backend="pallas")
     elif case == "queue A item 6":
-        tsched.Scheduler(tm, tp, mesh=object())
+        # the mesh guard: a mesh without a 'model' axis
+        from repro_torch.parallel.sharding import AbstractMesh
+        tsched.Scheduler(tm, tp, mesh=AbstractMesh((4,), ("data",)))
     elif case == "unknown loop":
         tsched.Scheduler(tm, tp, loop="while")
     elif case == "duplicate":
@@ -305,6 +307,6 @@ def _guard(case):
                                   "duplicate",
                                   "capacity", "blocks", "largest bucket"))
 def test_scheduler_guards(case):
-    exc = NotImplementedError if case == "queue A item 6" else ValueError
-    with pytest.raises(exc, match=case):
+    match = "needs a 'model' axis" if case == "queue A item 6" else case
+    with pytest.raises(ValueError, match=match):
         _guard(case)

@@ -401,8 +401,14 @@ def test_microbatches_draw_their_own_keys(monkeypatch):
 
 
 def test_step_builders_and_meshes():
-    """make_prefill_step and make_decode_step run the model; a mesh is
-    refused with the roadmap's item named."""
+    """make_prefill_step and make_decode_step run the model; on the
+    one-rank CPU mesh (make_local_mesh) the builders' mesh paths give the
+    meshless results bitwise: prefill, decode and a train step from the
+    state's shards (the 4-rank gloo mesh: tests/test_torch_sharded.py)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import shard_state, state_shardings, unshard_state
     model = tiny_model()
     params = _port_state()["params"]
     caches, logits = make_prefill_step(model)(params, _batch())
@@ -411,11 +417,28 @@ def test_step_builders_and_meshes():
     tok = logits.argmax(-1)
     _, l2 = make_decode_step(model)(params, caches, tok, BATCH["S"])
     assert l2.shape == logits.shape
-    for fn in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_train_step(model, AdamWConfig(), mesh=object())
+    mesh = make_local_mesh("cpu")
+    try:
+        from repro_torch.parallel import sharding as S
+        local = S.distribute(params, S.param_shardings(params, mesh,
+                                                       no_fsdp=True), mesh)
+        mc, ml = make_prefill_step(model, mesh=mesh)(local, _batch())
+        assert torch.equal(ml, logits)
+        _, ml2 = make_decode_step(model, mesh=mesh)(local, mc, tok,
+                                                    BATCH["S"])
+        assert torch.equal(ml2, l2)
+        state = _port_state()
+        specs = state_shardings(state, mesh)
+        want, wm = make_train_step(model, AdamWConfig(**OPT), donate=False)(
+            _port_state(), _batch())
+        got, gm = make_train_step(model, AdamWConfig(**OPT), mesh=mesh)(
+            shard_state(state, mesh), _batch())
+        got = unshard_state(got, specs, mesh)
+        assert float(gm["loss"]) == float(wm["loss"])
+        for a, b in zip(leaves(got), leaves(want)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------ checkpoints --
