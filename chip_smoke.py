@@ -91,6 +91,22 @@ its last line:
      fused equal to reference; parameter counts, prefill ms, scan decode
      tokens/s, a replay's ms and busy share, peak memory (the kernel phase
      also checks and times every (M, K, N) these models launch);
+  8d. mesh: the parallel layer on a one-rank NCCL (1, 1) mesh
+     (phase_mesh's docstring): Engine, Scheduler, the MoE's expert
+     parallelism and a clean and a FAT train step, each equal to its
+     meshless run, and the training launcher under torch.distributed.run;
+  8e. dryrun: the production-mesh dry run (repro_torch.launch.dryrun, on a
+     fake 256-rank process group and fake tensors, started in the
+     background after 8d, the last of the host-bound timed phases before
+     it) of danube's train_4k and decode_32k cells on (16, 16): each
+     cell's peak and persistent GB, fits, collective GB by op, TFLOP and
+     trace s; the dry runs of 8d's two clean train steps (S = 64, one
+     attention block; S = 2048, the blocked attention) on a fake (1, 1)
+     group against the real steps: the step's own peak live bytes (its
+     peak less its inputs) within DRYRUN["live_rtol"], the same
+     collectives, the card-memory constant equal to total_memory; then
+     examples/torch_quickstart.py and torch_fault_tolerant_serving.py on
+     the card, each to exit 0;
   9. faults: protect_linear fused equals reference on the card, for all 7
      policies with weight faults, per-row keys and an important mask, and
      equals the CPU; pallas equals the CPU for all 7 policies; the reduced
@@ -153,6 +169,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -278,32 +295,26 @@ MESH = dict(layers=24, checked_new=2, train_layers=8, moe_arch=
             "qwen3-moe-235b-a22b", torchrun_timeout=300,
             replay_order=("meshless", "mesh", "mesh", "meshless",
                           "meshless", "mesh"))
+# the dryrun phase: repro_torch.launch.dryrun's CLI on danube's train_4k
+# and decode_32k cells of the (16, 16) production mesh (a fake 256-rank
+# process group, fake tensors), started in the background after the mesh
+# phase; the card checks dry-run the mesh phase's clean train steps on a
+# fake (1, 1) group: "short" (danube at MESH["train_layers"], B =
+# TRAIN["batch"], S = TRAIN["seq"]: one attention block) and "blocked"
+# (danube at 2 layers, B = 2, S = 2048: chunked_attention's blocked path,
+# 4 x 4 blocks of 512, whose saved float32 block scores dominate the
+# train_4k cells' peaks), each holding the step's own live bytes (peak
+# less inputs) within DRYRUN["live_rtol"] of the real step's; the examples
+# line runs two of examples/torch_*.py on the card
+DRYRUN = dict(arch="h2o-danube-1.8b", shapes=("train_4k", "decode_32k"),
+              checks=dict(short=dict(layers=MESH["train_layers"],
+                                     batch=TRAIN["batch"], seq=TRAIN["seq"]),
+                          blocked=dict(layers=2, batch=2, seq=2048)),
+              live_rtol=0.03, timeout=600,
+              examples=("torch_quickstart.py",
+                        "torch_fault_tolerant_serving.py"))
 # published parameter counts (tests/test_models_smoke.py; the backbones)
 PUBLISHED_PARAMS = {"paligemma-3b": 2.5e9, "seamless-m4t-medium": 0.7e9}
-# VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
-# benchmarks/workloads.py (which imports the JAX package): (name, out_hw,
-# k, cin, cout), then the three fc layers; the first 40% are "sensitive"
-_VGG16 = (
-    ("conv1_1", 224, 3, 3, 64), ("conv1_2", 224, 3, 64, 64),
-    ("conv2_1", 112, 3, 64, 128), ("conv2_2", 112, 3, 128, 128),
-    ("conv3_1", 56, 3, 128, 256), ("conv3_2", 56, 3, 256, 256),
-    ("conv3_3", 56, 3, 256, 256),
-    ("conv4_1", 28, 3, 256, 512), ("conv4_2", 28, 3, 512, 512),
-    ("conv4_3", 28, 3, 512, 512),
-    ("conv5_1", 14, 3, 512, 512), ("conv5_2", 14, 3, 512, 512),
-    ("conv5_3", 14, 3, 512, 512),
-)
-
-
-def vgg16_gemms():
-    from repro_torch.core.perfmodel import Gemm
-    out = [(n, hw * hw, k * k * cin, cout) for n, hw, k, cin, cout in _VGG16]
-    out += [("fc6", 1, 7 * 7 * 512, 4096), ("fc7", 1, 4096, 4096),
-            ("fc8", 1, 4096, 1000)]
-    n_sens = int(0.4 * len(out))
-    return [Gemm(*g, sensitive=i < n_sens) for i, g in enumerate(out)]
-
-
 def conv_shapes(n_eval=384):
     """[(site, (M, K, N))] of the protected GEMMs of one CnnOracle forward
     of CNNConfig() (vgg, channels 16/32, 16x16, 8 classes) over ``n_eval``
@@ -2436,6 +2447,7 @@ def phase_dse(torch):
     from repro_torch import ft
     from repro_torch.core import bayesopt as Bo
     from repro_torch.core.evaluate import CnnOracle, trained_cnn
+    from repro_torch.core.perfmodel import vgg16_gemms
     from repro_torch.core.pipeline import optimize
     from repro_torch.kernels.fused_decode import kernel
     from repro_torch.kernels.fused_decode import ops as fops
@@ -2652,8 +2664,10 @@ def phase_mesh(torch, ms):
 
     def run(label, fn):
         """fn's result, its seconds, peak memory (and the memory held
-        before it) and collectives."""
+        before it, after a collection: a cycle freed during fn would
+        hide fn's own bytes) and collectives."""
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         pctx.COLLECTIVES.clear()
@@ -2663,7 +2677,9 @@ def phase_mesh(torch, ms):
         torch.cuda.synchronize()
         out[label] = dict(s=time.perf_counter() - t0,
                           peak_bytes=torch.cuda.max_memory_allocated(),
-                          base_bytes=base, collectives=collectives())
+                          base_bytes=base,
+                          end_bytes=torch.cuda.memory_allocated(),
+                          collectives=collectives())
         return res
 
     # ---- danube at 24 layers: the scan, then a checked python loop
@@ -2785,8 +2801,10 @@ def phase_mesh(torch, ms):
         s1, met1 = run(f"train_{kind}_meshless", lambda: make_train_step(
             tmodel, opt, **fat)(copy, tbatch))
         shards = shard_state(tree.tree_map(torch.clone, state0), mesh, specs)
+        inputs = _alloc_bytes(torch, [shards, tbatch])
         s2, met2 = run(f"train_{kind}_mesh", lambda: make_train_step(
             tmodel, opt, mesh=mesh, **fat)(shards, tbatch))
+        out[f"train_{kind}_mesh"]["input_bytes"] = inputs
         s2 = unshard_state(s2, specs, mesh)
         diff = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(tree.leaves(s1), tree.leaves(s2)))
@@ -2807,6 +2825,24 @@ def phase_mesh(torch, ms):
         del s1, s2, shards, copy
     out.update(train_layers=tcfg.n_layers, train=train)
     del state0, tmodel
+    torch.cuda.empty_cache()
+
+    # ---- the dryrun phase's blocked-attention check: a clean step on the
+    # mesh at a length that takes chunked_attention's blocked path
+    blk = DRYRUN["checks"]["blocked"]
+    bmodel = build(dataclasses.replace(tcfg, n_layers=blk["layers"]),
+                   run_cfg)
+    bstate = shard_state(init_state(bmodel, tg, opt, device=dev), mesh)
+    bbatch = {"tokens": torch.randint(0, tcfg.vocab, (blk["batch"],
+                                                      blk["seq"]),
+                                      generator=tg, device=dev)}
+    inputs = _alloc_bytes(torch, [bstate, bbatch])
+    _, met = run("train_blocked_mesh", lambda: make_train_step(
+        bmodel, opt, mesh=mesh)(bstate, bbatch))
+    if not math.isfinite(float(met["loss"])):
+        raise AssertionError(f"blocked train step: loss {met['loss']}")
+    out["train_blocked_mesh"]["input_bytes"] = inputs
+    del bstate, bbatch, bmodel, met
     torch.cuda.empty_cache()
     dist.destroy_process_group()
 
@@ -2829,7 +2865,154 @@ def phase_mesh(torch, ms):
     per_shape = collections.Counter()
     for (M, K, N, _), v in seen.items():
         per_shape[(M, K, N)] += v
-    return dict(launches=launches, ms=kernel_ms, per_shape=per_shape)
+    return dict(launches=launches, ms=kernel_ms, per_shape=per_shape,
+                train_checks=dict(short=out["train_clean_mesh"],
+                                  blocked=out["train_blocked_mesh"]))
+
+
+def _alloc_bytes(torch, trees):
+    """The bytes the caching allocator gives the distinct storages of
+    ``trees``' tensors: each rounded up to its 512-byte blocks."""
+    from repro_torch.tree import leaves
+    seen = {}
+    for t in trees:
+        for x in leaves(t):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(seen.values())
+
+
+def start_dryrun():
+    """The dryrun phase's subprocesses, started in the background (they
+    need the CPU only): the dry-run CLI on each of DRYRUN's cells, and the
+    dry run of each of DRYRUN["checks"]' clean train steps on a fake (1, 1)
+    group."""
+    import os
+    out = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for shape in DRYRUN["shapes"]:
+        procs[shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN["arch"], "--shape", shape, "--mesh", "single", "--force",
+             "--out", str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    for name, c in DRYRUN["checks"].items():
+        code = (
+            "import dataclasses, json\n"
+            "from repro_torch.configs import get_config, get_run_config\n"
+            "from repro_torch.configs.base import ShapeConfig\n"
+            "from repro_torch.launch import dryrun as D\n"
+            "from repro_torch.models import build\n"
+            f"arch = {DRYRUN['arch']!r}\n"
+            "cfg = dataclasses.replace(get_config(arch), n_layers="
+            f"{c['layers']})\n"
+            "m = build(cfg, get_run_config(arch))\n"
+            f"shape = ShapeConfig({name!r}, 'train', {c['seq']}, "
+            f"{c['batch']})\n"
+            "r = D.lower_model(m, shape, D.fake_mesh((1, 1), "
+            "('data', 'model')))\n"
+            "r['card_bytes_constant'] = D.H100_80GB_HBM3_BYTES\n"
+            "print(json.dumps(r))\n")
+        procs[f"check_{name}"] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return dict(procs=procs, out=out, t0=time.perf_counter())
+
+
+def _finish(name, proc):
+    stdout, stderr = proc.communicate(timeout=DRYRUN["timeout"])
+    if proc.returncode:
+        raise AssertionError(f"{name}: rc {proc.returncode}\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    return stdout
+
+
+def phase_dryrun(torch, started, mesh):
+    """The production-mesh dry run (``repro_torch.launch.dryrun``), its
+    checks against the card, and the examples:
+
+      * the dry-run CLI's cells (DRYRUN: danube's train_4k and decode_32k
+        on (16, 16), a fake 256-rank group and fake tensors, started by
+        ``start_dryrun``): each cell's peak and persistent GB, fits,
+        collective GB by op, TFLOP and trace s; each must be ok and fit;
+      * the card checks: the dry run of each of the mesh phase's clean
+        train steps of DRYRUN["checks"] (a fake (1, 1) group) against the
+        real step on the one-rank NCCL mesh (``phase_mesh``): the step's
+        own peak live bytes (the dry run's peak less its inputs; on the
+        card, ``max_memory_allocated`` over the step less what was
+        allocated before it, the inputs included) within
+        DRYRUN["live_rtol"], the same collectives by kind, and the
+        card-memory constant equal to ``total_memory``;
+      * the examples line: DRYRUN["examples"] on the card, each to exit 0,
+        run while the dry runs finish.
+    """
+    import os
+    t_phase = time.perf_counter()
+    out = {"phase": "dryrun"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    examples = {}
+    for name in DRYRUN["examples"]:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=DRYRUN["timeout"])
+        if proc.returncode:
+            raise AssertionError(f"{name}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        examples[name] = dict(rc=0, s=time.perf_counter() - t0,
+                              last=proc.stdout.strip().splitlines()[-1])
+    out["examples"] = examples
+    cells = {}
+    for shape in DRYRUN["shapes"]:
+        _finish(shape, started["procs"][shape])
+        path = (started["out"] / "single"
+                / f"{DRYRUN['arch']}__{shape}.json")
+        r = json.loads(path.read_text())
+        if r.get("failed") or r.get("skipped"):
+            raise AssertionError(f"dry run {shape}: {r}")
+        mm, coll = r["memory"], r["collectives"]
+        cells[shape] = dict(
+            mesh=r["mesh"], peak_gb=mm["peak_bytes"] / 1e9,
+            persistent_gb=mm["persistent_bytes"] / 1e9, fits=mm["fits"],
+            collective_gb={k: v / 1e9 for k, v in
+                           coll["wire_bytes"].items()},
+            collectives=coll["count"], tflop=r["flops"] / 1e12,
+            trace_s=r["trace_s"], fake_device=r["fake_device"])
+        if not mm["fits"]:
+            raise AssertionError(f"dry run {shape} does not fit: {cells}")
+    out["cells"] = cells
+    total = torch.cuda.get_device_properties(0).total_memory
+    checks, ok = {}, True
+    for name, c in DRYRUN["checks"].items():
+        est = json.loads(_finish(name, started["procs"][f"check_{name}"])
+                         .strip().splitlines()[-1])
+        real = mesh["train_checks"][name]
+        est_live = est["memory"]["peak_bytes"] - est["memory"]["input_bytes"]
+        live = real["peak_bytes"] - real["base_bytes"]
+        rel = abs(est_live - live) / live if live > 0 else math.inf
+        checks[name] = dict(
+            **c, est_live_bytes=est_live, measured_live_bytes=live,
+            rel_err=rel, live_rtol=DRYRUN["live_rtol"],
+            est_peak_bytes=est["memory"]["peak_bytes"],
+            measured_peak_bytes=live + real["input_bytes"],
+            est_input_bytes=est["memory"]["input_bytes"],
+            measured_input_bytes=real["input_bytes"],
+            est_collectives=est["collectives"]["count"],
+            measured_collectives=real["collectives"],
+            est_tflop=est["flops"] / 1e12, trace_s=est["trace_s"],
+            fake_device=est["fake_device"],
+            card_bytes_constant=est["card_bytes_constant"])
+        ok &= (rel <= DRYRUN["live_rtol"]
+               and est["collectives"]["count"] == real["collectives"]
+               and est["card_bytes_constant"] == total)
+    out.update(card_checks=checks, total_memory=total,
+               background_s=time.perf_counter() - started["t0"],
+               phase_s=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"dry run against the card: {out}")
+    emit(out)
 
 
 def _state_equal(torch, a, b):
@@ -3597,6 +3780,10 @@ def main() -> int:
     mesh = run(phase_mesh, ms)
     del ms
     torch.cuda.empty_cache()
+    # the dry runs need only the CPU: started after the host-bound timed
+    # phases, they overlap the examples
+    dryrun = start_dryrun()
+    run(phase_dryrun, dryrun, mesh)
     families = run(phase_families)
     run(phase_faults)
     dse = run(phase_dse)

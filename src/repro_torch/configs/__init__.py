@@ -8,7 +8,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoECfg, RunConfig, SSMCfg, reduce_config)
+    ModelConfig, MoECfg, RunConfig, SSMCfg, ShapeConfig, SHAPES, reduce_config)
 
 _MODULES = {
     "gemma2-27b": "gemma2_27b",
@@ -40,3 +40,16 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
 
 def get_run_config(arch: str) -> RunConfig:
     return _module(arch).RUN
+
+
+def cells(include_skips: bool = False):
+    """All (arch, shape) dry-run cells (``launch/dryrun.py``); a shape an
+    architecture does not support (``ModelConfig.supports``: long_500k
+    needs sub-quadratic attention) is left out unless ``include_skips``."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if cfg.supports(shape) or include_skips:
+                out.append((arch, shape.name))
+    return out

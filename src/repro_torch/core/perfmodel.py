@@ -139,3 +139,28 @@ def lm_layer_gemms(n_layers: int, d_model: int, d_ff: int, n_heads: int,
             Gemm(f"l{i}.ffn_out", seq, d_ff, d_model, s),
         ]
     return out
+
+
+# VGG16 at 224x224 as im2col GEMMs, the DSE's perf/IO workload: a copy of
+# benchmarks/workloads.py, which imports the JAX package: (name, out_hw, k,
+# cin, cout), then the three fc layers
+_VGG16 = (
+    ("conv1_1", 224, 3, 3, 64), ("conv1_2", 224, 3, 64, 64),
+    ("conv2_1", 112, 3, 64, 128), ("conv2_2", 112, 3, 128, 128),
+    ("conv3_1", 56, 3, 128, 256), ("conv3_2", 56, 3, 256, 256),
+    ("conv3_3", 56, 3, 256, 256),
+    ("conv4_1", 28, 3, 256, 512), ("conv4_2", 28, 3, 512, 512),
+    ("conv4_3", 28, 3, 512, 512),
+    ("conv5_1", 14, 3, 512, 512), ("conv5_2", 14, 3, 512, 512),
+    ("conv5_3", 14, 3, 512, 512),
+)
+
+
+def vgg16_gemms() -> list[Gemm]:
+    """VGG16's GEMMs; the first 40% of the layers are the fault-sensitive
+    set (cf. Fig. 5)."""
+    out = [(n, hw * hw, k * k * cin, cout) for n, hw, k, cin, cout in _VGG16]
+    out += [("fc6", 1, 7 * 7 * 512, 4096), ("fc7", 1, 4096, 4096),
+            ("fc8", 1, 4096, 1000)]
+    n_sens = int(0.4 * len(out))
+    return [Gemm(*g, sensitive=i < n_sens) for i, g in enumerate(out)]

@@ -23,6 +23,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 # ---------------------------------------------------------------- init -----
 def _trunc_normal(shape, std, dtype, device, generator):
+    if torch.device(device).type == "meta":   # the shape alone: no draws
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * std).to(dtype)

@@ -1,8 +1,9 @@
 """Public model API: build a Model from (ModelConfig, RunConfig).
 
 Counterpart of ``repro.models.model``: ``init``, ``loss`` (training),
-``prefill`` (with the cache ``grow``), ``decode_step`` and ``init_cache``.  Parameters
-and caches are plain dicts of tensors.
+``prefill`` (with the cache ``grow``), ``decode_step``, ``init_cache`` and
+the dry run's ``batch_specs``, ``cache_specs`` and ``param_specs`` (meta
+tensors).  Parameters and caches are plain dicts of tensors.
 """
 from __future__ import annotations
 
@@ -145,6 +146,34 @@ class Model:
             return c
         return {f"l{i}": layer(kind)
                 for i, kind in enumerate(T.layer_kinds(cfg))}
+
+    def batch_specs(self, shape) -> dict:
+        """Meta tensors of one input batch of ``shape`` (a ``ShapeConfig``),
+        in the reference's shapes and dtypes: int32 ``tokens``, and the
+        vision family's ``patch_embeds`` or the encoder-decoder's
+        ``frames`` in the compute dtype."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dtype = dtype_of(self.run.compute_dtype)
+
+        def meta(shp, dt):
+            return torch.empty(shp, dtype=dt, device="meta")
+        if cfg.frontend == "vision":
+            P = cfg.n_frontend_tokens
+            return {"tokens": meta((B, S - P), torch.int32),
+                    "patch_embeds": meta((B, P, cfg.d_model), dtype)}
+        if cfg.enc_dec:
+            return {"tokens": meta((B, S), torch.int32),
+                    "frames": meta((B, S, cfg.d_model), dtype)}
+        return {"tokens": meta((B, S), torch.int32)}
+
+    def cache_specs(self, batch: int, seq_len: int) -> dict:
+        """``init_cache``'s tree as meta tensors (no memory)."""
+        return self.init_cache(batch, seq_len, device="meta")
+
+    def param_specs(self, seed: int = 0) -> dict:
+        """``init``'s tree as meta tensors (no memory)."""
+        return self.init(torch.Generator().manual_seed(seed), device="meta")
 
 
 def build(cfg: ModelConfig, run: RunConfig | None = None) -> Model:

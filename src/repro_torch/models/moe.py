@@ -50,7 +50,10 @@ def init(generator, cfg, dtype, device):
 
 
 def _expert_init(generator, E, d_in, d_out, dtype, device):
-    """(E, d_in, d_out): one ``dense_init`` matrix per expert."""
+    """(E, d_in, d_out): one ``dense_init`` matrix per expert (on the meta
+    device, the shape alone: there is nothing to draw)."""
+    if torch.device(device).type == "meta":
+        return torch.empty((E, d_in, d_out), dtype=dtype, device=device)
     return torch.stack([dense_init(generator, d_in, d_out, dtype, device)
                         for _ in range(E)])
 

@@ -30,7 +30,8 @@ collective a replicated consumer needs (a cut's backward gathers, a
 gather's backward cuts, ``psum``'s is the identity and ``tp_copy``'s sums),
 so a train step differentiates through the partitioning.  Every collective
 runs on the mesh dim's process group whatever its size: a one-rank mesh
-launches the same collectives (``COLLECTIVES`` counts them by kind).
+launches the same collectives (``COLLECTIVES`` counts them by kind, and
+``WIRE_BYTES`` adds up each one's per-device wire bytes, ``wire_bytes``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import math
 import torch
 
 COLLECTIVES: collections.Counter = collections.Counter()
+WIRE_BYTES: collections.Counter = collections.Counter()
 # all_gather_single is all_gather_into_tensor's newer name
 _all_gather_single = getattr(torch.distributed, "all_gather_single",
                              None) or torch.distributed.all_gather_into_tensor
@@ -50,7 +52,7 @@ _all_gather_single = getattr(torch.distributed, "all_gather_single",
 def mesh_shape(mesh) -> dict:
     """{axis name: size} of a DeviceMesh or an AbstractMesh."""
     if hasattr(mesh, "mesh_dim_names"):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(mesh.shape)
 
 
@@ -133,6 +135,24 @@ def mesh_ctx(ctx: MeshCtx | None):
 
 
 # ----------------------------------------------------------- collectives ---
+def wire_bytes(kind: str, out_bytes: int, group: int) -> float:
+    """Per-device bytes a ring algorithm moves for one collective of
+    ``kind`` (the two the port issues) with ``out_bytes`` of output over a
+    group of ``group`` ranks (the reference dry run's formulas)."""
+    g = max(group, 1)
+    if kind == "all_gather":
+        return out_bytes * (g - 1) / g
+    if kind == "all_reduce":
+        return 2 * out_bytes * (g - 1) / g
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def _count(kind: str, out, group: int) -> None:
+    COLLECTIVES[kind] += 1
+    WIRE_BYTES[kind] += wire_bytes(kind, out.numel() * out.element_size(),
+                                   group)
+
+
 def _axes(ctx: MeshCtx, axes) -> tuple:
     if axes == "tp":
         return (ctx.tp,)
@@ -155,7 +175,7 @@ def all_gather(ctx, x, dim: int, axes):
         xm = x.movedim(dim, 0).contiguous()
         out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
         _all_gather_single(out, xm, group=ctx.group(a))
-        COLLECTIVES["all_gather"] += 1
+        _count("all_gather", out, n)
         x = out.movedim(0, dim).contiguous()
     return x
 
@@ -166,7 +186,7 @@ def all_reduce(ctx, x, axes, op=None):
     for a in reversed(_axes(ctx, axes)):
         torch.distributed.all_reduce(
             x, op=op or torch.distributed.ReduceOp.SUM, group=ctx.group(a))
-        COLLECTIVES["all_reduce"] += 1
+        _count("all_reduce", x, mesh_shape(ctx.mesh)[a])
     return x
 
 

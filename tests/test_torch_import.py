@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither jax nor triton, and
-no module of it (nor chip_smoke.py) imports jax or the JAX package."""
+no module of it (nor chip_smoke.py, nor the port's examples) imports jax or
+the JAX package."""
 import ast
 import os
 import pathlib
@@ -38,7 +39,7 @@ def test_import_leaves_jax_and_triton_out():
             "repro_torch.configs.paligemma_3b, "
             "repro_torch.parallel.ctx, repro_torch.parallel.sharding, "
             "repro_torch.parallel.compression, repro_torch.launch.mesh, "
-            "repro_torch.train.elastic; "
+            "repro_torch.train.elastic, repro_torch.launch.dryrun; "
             "bad = [m for m in ('jax', 'jaxlib', 'triton', 'repro') "
             "if m in sys.modules]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -58,7 +59,8 @@ def _imports(path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("torch_*.py")))
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):

@@ -122,6 +122,13 @@ def test_perfmodel_equal():
                             == JP.io_bytes(jl, jc, kind, s_th=s))
 
 
+
+def test_vgg16_gemms_equal_benchmark_workload():
+    """The port's VGG16 GEMM table (the DSE's perf/IO workload) is
+    benchmarks/workloads.py's, layer for layer, sensitive set included."""
+    from benchmarks.workloads import vgg16_gemms
+    assert _fields(TP.vgg16_gemms()) == _fields(vgg16_gemms())
+
 # -------------------------------------------------------------- bayesopt --
 def synthetic_eval(B):
     def ev(cfg):

@@ -4,7 +4,8 @@ other test files hold to the reference).
 
 The ranks are spawned once per module (``_results``: this file run as a
 script, ``torch.multiprocessing.spawn`` over a ``file://`` store, each rank
-at one thread); rank 0 records every check, and each test reads its own.
+at one thread); rank 0 runs the meshless references and records every
+check, and each test reads its own.
 The mesh is (2, 2) as the reference's sharded tests choose theirs: tp = 2
 divides the reduced configs' kv heads (2), heads (4) and experts (4), so
 attention splits by heads and the MoE combine is a two-term sum; MoE
@@ -151,6 +152,12 @@ def _load(arch):
     return cfg, m, m.init(torch.Generator().manual_seed(0), device="cpu")
 
 
+def _meshless(rank):
+    """Runs a meshless reference computation on rank 0 only (rank 0
+    records every check); None elsewhere."""
+    return lambda fn: fn() if rank == 0 else None
+
+
 def _policy(name):
     from repro_torch import ft
     if name == "crt1wf":
@@ -160,6 +167,7 @@ def _policy(name):
 
 def _serving(rank, mesh, rec):
     import torch
+    meshless = _meshless(rank)
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.scheduler import Request, Scheduler, SchedulerConfig
     for arch in ARCHS:
@@ -168,13 +176,15 @@ def _serving(rank, mesh, rec):
         batch = {"tokens": torch.randint(0, cfg.vocab, (4, 8), generator=g)}
         scfg = ServeConfig(max_new_tokens=6)
         for pol in POLICIES:
-            ref = Engine(m, params, cfg=scfg, policy=_policy(pol),
-                         loop="python").generate(batch, seed=3)
+            ref = meshless(lambda: Engine(
+                m, params, cfg=scfg, policy=_policy(pol),
+                loop="python").generate(batch, seed=3))
             for loop in ("python", "scan"):
                 got = Engine(m, params, cfg=scfg, policy=_policy(pol),
                              loop=loop, mesh=mesh).generate(batch, seed=3)
-                rec(f"engine/{arch}/{pol}/{loop}", torch.equal(ref, got),
-                    ref=ref.tolist(), got=got.tolist())
+                if rank == 0:
+                    rec(f"engine/{arch}/{pol}/{loop}", torch.equal(ref, got),
+                        ref=ref.tolist(), got=got.tolist())
 
         def reqs():
             return [Request(rid=i, tokens=torch.randint(
@@ -186,14 +196,16 @@ def _serving(rank, mesh, rec):
         for pol in POLICIES:
             # danube through the graphed chunk loop, qwen3-moe eagerly
             loop = "scan" if arch == ARCHS[0] else "python"
-            ref = Scheduler(m, params, sc, policy=_policy(pol),
-                            loop=loop).run(reqs())
+            ref = meshless(lambda: Scheduler(m, params, sc, policy=_policy(
+                pol), loop=loop).run(reqs()))
             sched = Scheduler(m, params, sc, policy=_policy(pol), mesh=mesh,
                               loop=loop)
             got = sched.run(reqs())
-            want = [ref[i].generated for i in range(6)]
-            have = [got[i].generated for i in range(6)]
-            rec(f"scheduler/{arch}/{pol}", want == have, ref=want, got=have)
+            if rank == 0:
+                want = [ref[i].generated for i in range(6)]
+                have = [got[i].generated for i in range(6)]
+                rec(f"scheduler/{arch}/{pol}", want == have, ref=want,
+                    got=have)
             if arch == ARCHS[0] and pol == "crt3":
                 _pools(mesh, m, sched, rec)
     for arch in FAMILIES:
@@ -206,12 +218,13 @@ def _serving(rank, mesh, rec):
         if cfg.enc_dec:
             batch["frames"] = torch.randn((4, 5, cfg.d_model), generator=g)
         scfg = ServeConfig(max_new_tokens=4)
-        ref = Engine(m, params, cfg=scfg, policy="crt3").generate(batch,
-                                                                  seed=3)
+        ref = meshless(lambda: Engine(m, params, cfg=scfg,
+                                      policy="crt3").generate(batch, seed=3))
         got = Engine(m, params, cfg=scfg, policy="crt3",
                      mesh=mesh).generate(batch, seed=3)
-        rec(f"engine/{arch}", torch.equal(ref, got), ref=ref.tolist(),
-            got=got.tolist())
+        if rank == 0:
+            rec(f"engine/{arch}", torch.equal(ref, got), ref=ref.tolist(),
+                got=got.tolist())
 
 
 def _pools(mesh, m, sched, rec):
@@ -240,6 +253,7 @@ def _pools(mesh, m, sched, rec):
 
 def _train(rank, mesh, rec):
     import torch
+    meshless = _meshless(rank)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import build
@@ -259,7 +273,8 @@ def _train(rank, mesh, rec):
         return init_state(m, torch.Generator().manual_seed(0), opt, "cpu")
     for kind, fat in (("clean", {}), ("fat", dict(policy="crt1",
                                                    ft_ber=3e-3))):
-        s1, met1 = make_train_step(m, opt, **fat)(fresh(), batch)
+        s1, met1 = meshless(lambda: make_train_step(m, opt, **fat)(
+            fresh(), batch)) or (None, None)
         specs = state_shardings(fresh(), mesh)
         local = shard_state(fresh(), mesh)
         shapes_ok = all(
@@ -268,6 +283,8 @@ def _train(rank, mesh, rec):
                 S.paths(local), S.paths(fresh()), S.paths(specs)))
         s2, met2 = make_train_step(m, opt, mesh=mesh, **fat)(local, batch)
         s2 = unshard_state(s2, specs, mesh)
+        if rank != 0:
+            continue
         dl = abs(float(met1["loss"]) - float(met2["loss"]))
         dp, rel = _state_diff(s1, s2, met1["grad_norm"], met2["grad_norm"])
         rec(f"train/{kind}", dl < TRAIN_TOL and dp < TRAIN_TOL
@@ -283,7 +300,7 @@ def _train(rank, mesh, rec):
     b = {"tokens": torch.randint(0, cfg.vocab, (8, 16),
                                  generator=torch.Generator().manual_seed(1))}
     with torch.no_grad():
-        l0, _ = m.loss(params, b)
+        l0 = meshless(lambda: m.loss(params, b)[0])
         ctx = S.make_ctx(mesh).for_rows(b["tokens"].shape[0])
         specs = S.param_shardings(params, mesh)
         local = S.distribute(params, specs, mesh)
@@ -292,8 +309,9 @@ def _train(rank, mesh, rec):
                                          keep=S.keep_experts),
                            {"tokens": pctx.local_rows(b["tokens"])})
         l1 = pctx.all_reduce(ctx, l1, "dp") / ctx.dp_size
-    rec("moe_loss", abs(float(l0) - float(l1)) < MOE_TOL, l0=float(l0),
-        l1=float(l1))
+    if rank == 0:
+        rec("moe_loss", abs(float(l0) - float(l1)) < MOE_TOL, l0=float(l0),
+            l1=float(l1))
 
 
 def _streams(rank, mesh, rec):
